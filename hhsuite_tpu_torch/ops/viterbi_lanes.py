@@ -1,0 +1,279 @@
+"""Template-lanes Viterbi kernels: K1 (score-only sweep) and K2
+(full-backtrace pass), CUDA C++ in ``csrc/viterbi.cu``.
+
+Both map one TEMPLATE to one GPU thread, the way the reference maps
+templates to SIMD lanes (src/hhviterbialgorithm.cpp:45-497), and walk
+query rows and template columns in the reference's row-sequential order
+(see the kernel source for the layout).  Each wrapper takes the JAX
+package's shapes — ``tp`` (B, Lt+2, 20), ``ttr`` (B, Lt+2, 7) — and reads
+them lanes-last: ``tp.permute(1, 2, 0).contiguous()`` is free when the
+caller's storage is already (Lt+2, 20, B), as the resident template pack
+hands it out.
+
+On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the kernel or raises.  ``<wrapper>.launches`` counts
+kernel launches.
+
+K1 ``viterbi_score_lanes_fused`` replaces the Pallas kernel of the same
+name (hhsuite_tpu/ops/viterbi_lanes.py): best local score per template
+(egq = egt = 0) with the 20-term profile dot and the log2 fused into the
+DP.  ``si_mode="fast"`` uses the exponent-bit log2 with a quartic
+mantissa correction (|err| <= 0.000146 bit/cell; ranking only, the
+survivors are rescored exactly), ``"exact"`` the ``log2f4`` cubic.  The
+dot is f32 in the reference's SSE summation order — the TPU kernel's
+bf16 MXU operands have no counterpart here.
+
+K2 ``viterbi_backtrace_lanes`` replaces
+hhsuite_tpu/ops/viterbi_lanes.py:viterbi_backtrace_lanes: the full local
+Viterbi (no cell-off, no SS) with score, best cell (score desc, i asc,
+j asc) and the backtrace bytes, bit-identical to
+:func:`ops.viterbi.viterbi_batch`.  The bytes come back as a
+(B, Lq+1, Lt+1) view of lanes-last storage, which the device walk
+(:func:`ops.viterbi.backtrace_walk_packed8`) reads in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .viterbi import (D2D, D2M, FLT_MAX, I2I, I2M, M2D, M2I, M2M, _diag_index,
+                      _up, diag_si, fmax, viterbi_batch)
+
+_BOUND = {}
+
+
+def cuda_lib():
+    """The built ``csrc/viterbi.cu`` library with its C signatures."""
+    from ..device import cuda_library
+
+    lib, _info = cuda_library("viterbi")
+    if not _BOUND.get(id(lib)):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, P]
+        lib.hh_vit_score.restype = I
+        lib.hh_vit_bt.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, F, F,
+                                  F, P, P, P, P, P, P]
+        lib.hh_vit_bt.restype = I
+        lib.hh_error_string.argtypes = [I]
+        lib.hh_error_string.restype = ctypes.c_char_p
+        _BOUND[id(lib)] = True
+    return lib
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed: "
+                           f"{lib.hh_error_string(rc).decode()}")
+
+
+def _require_cuda(*tensors) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"Viterbi kernels take CPU or CUDA tensors, "
+                         f"not {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("all kernel inputs must be on one device")
+    return dev
+
+
+def _lanes_last(x: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, ...) -> contiguous (..., B) storage; no copy when ``x`` is
+    already a view of lanes-last storage."""
+    return x.to(dtype).movedim(0, -1).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _fast_shift(shift) -> np.float32:
+    """K1 ``fast`` folds the -127 exponent bias into the shift (f32)."""
+    return np.float32(shift) - np.float32(127.0)
+
+
+# ------------------------------------------------------------------ K1 --
+
+def viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
+                              si_mode="exact"):
+    """Plain PyTorch version of K1 (any device): an anti-diagonal sweep
+    evaluating each cell with K1's own arithmetic — the five MM
+    candidates factored into two max trees (the TPU kernel's
+    viterbi_lanes.py:537-552), MM boundary 0 on row 0 and column 0."""
+    dev = tp.device
+    f32 = torch.float32
+    qp = qp.to(dev, f32)
+    qtr = qtr.to(dev, f32)
+    tp = tp.to(f32)
+    ttr = ttr.to(f32)
+    Lq = qp.shape[0] - 2
+    Lt = tp.shape[1] - 2
+    B = tp.shape[0]
+    Wi = Lq + 1
+    NEG = -FLT_MAX
+    exact = si_mode == "exact"
+    sh = torch.tensor(np.float32(shift), device=dev)
+    sh_fast = _fast_shift(shift)
+    zero = torch.tensor(0.0, dtype=f32, device=dev)
+    negrow = torch.full((B, Wi), NEG, dtype=f32, device=dev)
+
+    ii = torch.arange(Wi, device=dev)
+    im1 = (ii - 1).clamp(min=0)
+    qm2m_1 = qtr[im1, M2M][None]
+    qd2m_1 = qtr[im1, D2M][None]
+    qi2m_1 = qtr[im1, I2M][None]
+    qm2d_1 = qtr[im1, M2D][None]
+    qd2d_1 = qtr[im1, D2D][None]
+    qm2i_0 = qtr[ii, M2I][None]
+    qi2i_0 = qtr[ii, I2I][None]
+    qrow = qp[:Wi]
+
+    def boundary(d):
+        j = d - ii
+        mm = torch.where(((ii == 0) | (j == 0)) & (j >= 0) & (j <= Lt),
+                         0.0, NEG).to(f32)
+        return mm[None].expand(B, Wi)
+
+    mm1, mm2 = boundary(1), boundary(0)
+    dg1 = mi1 = gd1 = imc1 = negrow
+    dg2 = mi2 = gd2 = imc2 = negrow
+    best = torch.full((B,), NEG, dtype=f32, device=dev)
+    for d in range(2, Lq + Lt + 1):
+        _ii, _jj, on, jc, jm1 = _diag_index(d, Wi, Lt, dev)
+        si = diag_si(qrow, tp, jc, sh, exact=exact, sh_fast=sh_fast)
+        tm2m1 = ttr[:, jm1, M2M]
+        td2m1 = ttr[:, jm1, D2M]
+        ti2m1 = ttr[:, jm1, I2M]
+        tm2d1 = ttr[:, jm1, M2D]
+        td2d1 = ttr[:, jm1, D2D]
+        tm2i0 = ttr[:, jc, M2I]
+        ti2i0 = ttr[:, jc, I2I]
+
+        mm_d, gd_d, im_d = _up(mm2, negrow), _up(gd2, negrow), \
+            _up(imc2, negrow)
+        dg_d, mi_d = _up(dg2, negrow), _up(mi2, negrow)
+        t_a = fmax(mm_d + qm2m_1, im_d + qi2m_1)
+        t_a = fmax(t_a, dg_d + qd2m_1) + tm2m1
+        t_b = fmax(gd_d + td2m1, mi_d + ti2m1) + qm2m_1
+        mm_new = fmax(fmax(zero, t_a), t_b) + si
+
+        mm_u, dg_u, mi_u = _up(mm1, negrow), _up(dg1, negrow), \
+            _up(mi1, negrow)
+        dg_new = fmax(mm_u + qm2d_1, dg_u + qd2d_1)
+        mi_new = fmax(mm_u + tm2i0, mi_u + ti2i0) + qm2m_1
+        gd_new = fmax(mm1 + tm2d1, gd1 + td2d1)
+        im_new = fmax(mm1 + qm2i_0, imc1 + qi2i_0) + tm2m1
+
+        onb = on[None]
+        best = fmax(best, torch.where(onb, mm_new, NEG).amax(dim=1))
+        mm_new = torch.where(onb, mm_new, boundary(d))
+        dg_new = torch.where(onb, dg_new, negrow)
+        mi_new = torch.where(onb, mi_new, negrow)
+        gd_new = torch.where(onb, gd_new, negrow)
+        im_new = torch.where(onb, im_new, negrow)
+        mm2, dg2, mi2, gd2, imc2 = mm1, dg1, mi1, gd1, imc1
+        mm1, dg1, mi1, gd1, imc1 = mm_new, dg_new, mi_new, gd_new, im_new
+    return fmax(best, torch.tensor(NEG, dtype=f32, device=dev))
+
+
+def viterbi_score_lanes_fused(qp, qtr, tp, ttr, t_L, shift,
+                              si_mode="fast"):
+    """K1: (B,) f32 best local score per template.  ``t_L`` is unused
+    (padded columns carry -FLT_MAX transitions), kept for the JAX
+    signature."""
+    if si_mode not in ("fast", "exact"):
+        raise ValueError(f"si_mode must be 'fast' or 'exact': {si_mode}")
+    if tp.device.type == "cpu":
+        return viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
+                                         si_mode=si_mode)
+    dev = _require_cuda(tp, ttr)
+    lib = cuda_lib()
+    f32 = torch.float32
+    Lq = qp.shape[0] - 2
+    B, Lt2, _ = tp.shape
+    Lt = Lt2 - 2
+    if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7):
+        raise ValueError("K1: inconsistent shapes")
+    qp_c = qp.to(dev, f32).contiguous()
+    qtr_c = qtr.to(dev, f32).contiguous()
+    tpT = _lanes_last(tp, f32)
+    ttrT = _lanes_last(ttr, f32)
+    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
+    out = torch.empty(B, dtype=f32, device=dev)
+    fast = si_mode == "fast"
+    sh = float(_fast_shift(shift) if fast else np.float32(shift))
+    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT), B,
+                          Lq, Lt, sh, int(fast), _ptr(scratch), _ptr(out),
+                          _stream(dev))
+    _check(lib, rc, "K1 viterbi_score_lanes_fused")
+    viterbi_score_lanes_fused.launches += 1
+    return out
+
+
+viterbi_score_lanes_fused.launches = 0
+
+
+# ------------------------------------------------------------------ K2 --
+
+def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, ss_score, shift, local,
+              Lq_true, penalty_gap_query=0.0, penalty_gap_template=0.0):
+    """Launch the backtrace kernel (K2: no cell-off, no SS, local; K3:
+    any).  Returns (score, i2, j2, bt) with bt a (B, Lq+1, Lt+1) view of
+    lanes-last storage."""
+    dev = _require_cuda(tp, ttr)
+    lib = cuda_lib()
+    f32 = torch.float32
+    Lq = qp.shape[0] - 2
+    B, Lt2, _ = tp.shape
+    Lt = Lt2 - 2
+    if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7) \
+            or tuple(t_L.shape) != (B,):
+        raise ValueError("backtrace kernel: inconsistent shapes")
+    for name, x in (("cell_off", cell_off), ("ss_score", ss_score)):
+        if x is not None and tuple(x.shape) != (B, Lq + 1, Lt + 1):
+            raise ValueError(f"backtrace kernel: {name} shape "
+                             f"{tuple(x.shape)} != {(B, Lq + 1, Lt + 1)}")
+    qp_c = qp.to(dev, f32).contiguous()
+    qtr_c = qtr.to(dev, f32).contiguous()
+    tpT = _lanes_last(tp, f32)
+    ttrT = _lanes_last(ttr, f32)
+    tL = t_L.to(dev, torch.int32).contiguous()
+    co = None if cell_off is None else _lanes_last(cell_off, torch.bool)
+    ss = None if ss_score is None else _lanes_last(ss_score, f32)
+    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
+    score = torch.empty(B, dtype=f32, device=dev)
+    i2 = torch.empty(B, dtype=torch.int32, device=dev)
+    j2 = torch.empty(B, dtype=torch.int32, device=dev)
+    bt = torch.empty((Lq + 1, Lt + 1, B), dtype=torch.uint8, device=dev)
+    lqt = Lq if Lq_true is None else int(Lq_true)
+    rc = lib.hh_vit_bt(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT),
+                       _ptr(tL), _ptr(co), _ptr(ss), B, Lq, Lt, lqt,
+                       int(bool(local)), float(np.float32(shift)),
+                       float(np.float32(penalty_gap_query)),
+                       float(np.float32(penalty_gap_template)),
+                       _ptr(scratch), _ptr(score), _ptr(i2), _ptr(j2),
+                       _ptr(bt), _stream(dev))
+    _check(lib, rc, "Viterbi backtrace kernel")
+    return score, i2, j2, bt.permute(2, 0, 1)
+
+
+def viterbi_backtrace_lanes(qp, qtr, tp, ttr, t_L, shift, Lq_true=None):
+    """K2: (score (B,) f32, i2 (B,) i32, j2 (B,) i32, bt (B, Lq+1, Lt+1)
+    u8) of the full local Viterbi, egq = egt = 0, no cell-off, no SS."""
+    if tp.device.type == "cpu":
+        return viterbi_batch(qp, qtr, tp, ttr, None, t_L, shift, 0.0, 0.0,
+                             0.0, local=True, Lq_true=Lq_true)
+    out = launch_bt(qp, qtr, tp, ttr, t_L, None, None, shift, True, Lq_true)
+    viterbi_backtrace_lanes.launches += 1
+    return out
+
+
+viterbi_backtrace_lanes.launches = 0

@@ -1,0 +1,110 @@
+"""The CUDA Viterbi kernels (K1, K2, K3) against their plain PyTorch
+versions on the card, bit for bit: phase 1 of ``chip_smoke.py`` at small
+shapes.  Needs a CUDA card; elsewhere every test skips.  On a machine
+with a card:  python -m pytest -m gpu tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hhsuite_tpu_torch.ops import viterbi as TV
+from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
+                                                 viterbi_score_lanes_fused,
+                                                 viterbi_score_lanes_plain)
+from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
+from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
+from test_torch_viterbi import make_inputs
+
+pytestmark = pytest.mark.gpu
+
+SHAPES = [(37, 29, 40), (64, 100, 70), (130, 77, 33)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _on(dev, shape, seed):
+    qp, qtr, tp, ttr, t_L, co, ss = make_inputs(*shape, seed=seed)
+    tp_d, ttr_d, tl_d = to_device_pack(tp, ttr, t_L, dev)
+    return (torch.from_numpy(qp).to(dev), torch.from_numpy(qtr).to(dev),
+            tp_d, ttr_d, tl_d, torch.from_numpy(co).to(dev),
+            torch.from_numpy(ss).to(dev))
+
+
+def _same(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", ["fast", "exact"])
+def test_k1_kernel_bit_identical(cuda, shape, mode):
+    qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 1)
+    n = viterbi_score_lanes_fused.launches
+    got = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tl, -0.03,
+                                    si_mode=mode)
+    assert viterbi_score_lanes_fused.launches == n + 1
+    want = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tl, -0.03,
+                                     si_mode=mode)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_k2_kernel_bit_identical(cuda, shape):
+    qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 2)
+    got = viterbi_backtrace_lanes(qp, qtr, tp, ttr, tl, -0.03,
+                                  Lq_true=shape[0] - 3)
+    want = TV.viterbi_batch(qp, qtr, tp, ttr, None, tl, -0.03,
+                            Lq_true=shape[0] - 3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same(a, b)
+    kmax = shape[0] + shape[1] + 1
+    pa = TV.backtrace_walk_packed8(got[3], *got[1:3], got[0], kmax)
+    pb = TV.backtrace_walk_packed8(want[3], *want[1:3], want[0], kmax)
+    assert torch.equal(pa, pb)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("local,use_co,use_ss", [
+    (True, True, False), (False, False, False), (False, True, False),
+    (True, False, True)])
+def test_k3_kernel_bit_identical(cuda, shape, local, use_co, use_ss):
+    qp, qtr, tp, ttr, tl, co, ss = _on(cuda, shape, 3)
+    co = co if use_co else None
+    ss = ss if use_ss else None
+    got = viterbi_batch_rows(qp, qtr, tp, ttr, co, tl, -0.03, ss_score=ss,
+                             local=local)
+    want = TV.viterbi_batch(qp, qtr, tp, ttr, co, tl, -0.03, ss_score=ss,
+                            local=local)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same(a, b)
+
+
+def test_kernels_take_exclusion_masks_in_place(cuda):
+    """The device-built exclusion mask is a lanes-last view; the kernel
+    reads it without a copy and matches the plain version."""
+    shape = (64, 100, 70)
+    qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 4)
+    rng = np.random.default_rng(4)
+    B, Li, Wj = shape[2], shape[0] + 1, shape[1] + 1
+    lo_c = rng.integers(0, Li, (B, 2, Wj)).astype(np.int16)
+    hi_c = (lo_c + rng.integers(-3, 30, (B, 2, Wj))).astype(np.int16)
+    lo_r = rng.integers(0, Wj, (B, 2, Li)).astype(np.int16)
+    hi_r = (lo_r + rng.integers(-3, 30, (B, 2, Li))).astype(np.int16)
+    mask = TV.exclusion_mask_device(*(torch.from_numpy(x).to(cuda)
+                                      for x in (lo_c, hi_c, lo_r, hi_r)))
+    assert mask.movedim(0, -1).is_contiguous()
+    got = viterbi_batch_rows(qp, qtr, tp, ttr, mask, tl, -0.03)
+    want = TV.viterbi_batch(qp, qtr, tp, ttr, mask.contiguous(), tl, -0.03)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same(a, b)
