@@ -6,23 +6,32 @@
 Phases, in order; the first failure ends the run with a non-zero exit
 and no result line:
 
-0. setup: the card's name and power limit, the torch version, the build
-   of the CUDA kernels (``hhsuite_tpu_torch/csrc/viterbi.cu``) and of the
-   native host library, and (in a background process) the two benchmark
-   databases under ``chip_smoke_cache/``;
-1. each Viterbi kernel (K1 fast and exact, K2, K3) against its plain
-   PyTorch version on the card at the search path's shapes: results
-   must be bit-identical; times from CUDA events;
-2. ``hhsearch`` through the CLI entry on the golden single-entry
-   database: ``-blasttab`` must equal tests/fixtures/golden_hhsearch.blasttab
-   byte for byte;
-3. the 512-template benchmark database searched on the card with the
-   funnel on (``-Z 100 -B 100 -realign_max 100``) and on the CPU with
-   the plain versions: the two ``.hhr`` files must agree apart from
-   their Date/Command lines;
-4. the 8192-template long-tail database with default parameters, cold
-   and warm: wall and host-stage times, hit counts and the kernels'
-   launch counts on that run (each must be > 0).
+0. setup: the card's name and power limit, the torch version, the builds
+   of the CUDA kernels (``hhsuite_tpu_torch/csrc/viterbi.cu`` and
+   ``csrc/prefilter.cu``, in parallel) and of the native host library,
+   and (in a background process) the benchmark databases under
+   ``chip_smoke_cache/``: the 512-, 128- and 8192-template families,
+   and two with decoys (128 + 16,384; 8192 + 1,040,384 = 2^20 entries);
+1. each kernel against its plain PyTorch version on the card at the
+   search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3)
+   bit-identical, the prefilter kernels (K4, K5) int-identical at the
+   path's shape and at edge shapes; times from CUDA events;
+2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
+   entry on the golden single-entry database: outputs byte-identical to
+   the reference's (tests/fixtures);
+3. the 512-template database: ``hhsearch`` with the funnel on (``-Z 100
+   -B 100 -realign_max 100``), and ``hhblits -n 2`` on its first 128
+   templates plus 16,384 decoys, each on the card and on the CPU with
+   the plain versions: the ``.hhr`` files (and ``-oa3m``) must agree
+   apart from Date/Command;
+4. the 8192-template long-tail database, ``hhsearch`` with default
+   parameters, cold and warm: wall and host-stage times, hit counts and
+   the Viterbi kernels' launch counts on that run (each must be > 0);
+5. ``hhblits -n 2`` with default parameters on the 2^20-entry database,
+   cold and warm: per round the prefilter survivors, templates, hits,
+   stage times and the launches of K1-K5 (each must be > 0 over the
+   run); K4 and K5 over the whole resident cs219 pack against their
+   plain versions; a profiled warm query.
 
 The last lines are the card (``nvidia-smi``), one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -37,6 +46,8 @@ import subprocess
 import sys
 import time
 import traceback
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, "chip_smoke_cache")
@@ -54,8 +65,22 @@ OPS_DOT = 39
 OPS_K1 = {"fast": OPS_DOT + 12 + 28, "exact": OPS_DOT + 10 + 28}
 OPS_BT = OPS_DOT + 10 + 45
 
+# INT32 rate of the H100 SXM: 132 SMs x 64 INT32 lanes (Hopper
+# architecture white paper) x 1.98 GHz boost clock = 1.67e13 op/s
+PEAK_INT32 = 132 * 64 * 1.98e9
+# integer operations per DP cell, counted in csrc/prefilter.cu: K4 add,
+# min, subtract, max, running max; K5 vH 4, H0 1, G 3, F 1, H 1, E 5,
+# running max 1 (addressing and loop control not counted)
+OPS_K4, OPS_K5 = 5, 16
+
 LQ, LT = 320, 384
 B_K1, B_K2, B_K3, B_SMALL = 8192, 4096, 1024, 64
+# prefilter: the hhblits path's query length and one 2^16 slice of the
+# long-tail database
+LQ_PF, B_PF = 300, 65536
+# phase 3's hhblits database: the first 128 templates of the 512 family
+# (the same entries) plus decoys; 128 keeps its CPU run near 40 s
+N_FAMILY_SMALL, N_DECOYS_SMALL, N_ENTRIES_BIG = 128, 16384, 1 << 20
 SEED = 20261016
 
 
@@ -76,8 +101,6 @@ def synth_inputs(Lq, Lt, B, seed, device):
     """Seeded profile-like inputs in the search path's layout: query
     (Lq+2, 20)/(Lq+2, 7), templates as (B, Lt+2, 20/7) views of
     lanes-last storage, true lengths between Lt/2 and Lt."""
-    import numpy as np
-
     from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 
     rng = np.random.default_rng(seed)
@@ -112,7 +135,6 @@ def synth_inputs(Lq, Lt, B, seed, device):
 def exclusion_masks(Lq, Lt, t_L, P, seed, device):
     """Altali-style cell-off masks on the device: P diagonal paths per
     lane, each widened by the +-40 exclusion band."""
-    import numpy as np
     import torch
 
     from hhsuite_tpu_torch.ops import viterbi as V
@@ -156,8 +178,8 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound_ms(ops: float, nbytes: float):
-    t_ops = ops / PEAK_F32 * 1e3
+def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_F32):
+    t_ops = ops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -312,6 +334,114 @@ def phase1_kernels(dev):
     return recs
 
 
+def long_tail_lengths(rng, n, L0=300):
+    """Lengths of the benchmark databases' long-tail mix
+    (tools/benchdb.py, length_mix=True): 70% ~L0, 20% half-length
+    fragments, 10% 1.5x duplications, with an indel spread."""
+    u = rng.random(n)
+    base = np.where(u < 0.2, L0 // 2, np.where(u > 0.9, L0 * 3 // 2, L0))
+    return np.maximum(1, base + rng.integers(-15, 16, n))
+
+
+def prefilter_table(rng, Lq, offset=50):
+    """A seeded (220, Lq) query table in the range the tests use, where
+    ungapped and gapped scores spread."""
+    qc = (rng.integers(0, 80, (220, Lq))
+          * (rng.random((220, Lq)) < 0.5)).astype(np.int32)
+    qc[219] = offset - 1
+    return qc
+
+
+def phase1_prefilter(dev):
+    """K4 and K5 against their plain versions on the card, over the
+    resident layout at the path's shape (B_PF long-tail sequences,
+    Lq = LQ_PF) and through the public wrappers at edge shapes; returns
+    the per-kernel records (without launch counts)."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import prefilter as P
+    from hhsuite_tpu_torch.search.prefilter import to_device_cs219
+
+    rng = np.random.default_rng(SEED + 10)
+    lens = long_tail_lengths(rng, B_PF)
+    seqs = [rng.integers(0, 219, n, dtype=np.uint8).tobytes() for n in lens]
+    pack = to_device_cs219(seqs, dev)
+    qc = torch.from_numpy(prefilter_table(rng, LQ_PF)).to(dev)
+    rows = (pack.states, pack.offsets, pack.row_lengths)
+    cells = LQ_PF * int(lens.sum())
+    nbytes = 220 * LQ_PF + int(lens.sum()) + B_PF * (8 + 4 + 4)
+    recs = {}
+    for key, kern, plain, args, ops, src in (
+            ("K4", P.ungapped_scores_packed, P.ungapped_scores_plain, (50,),
+             OPS_K4, "hhsuite_tpu/ops/prefilter_pallas.py:32"),
+            ("K5", P.gapped_scores_packed, P.gapped_scores_plain,
+             (24, 4, 50), OPS_K5, "hhsuite_tpu/ops/prefilter_pallas2.py:37")):
+        counter = P.ungapped_scores if key == "K4" else P.gapped_scores
+        n0 = counter.launches
+        out_k = kern(qc, *rows, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = P.packed_plain(plain, qc, *rows, *args, chunk=B_PF)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{key}: kernel != plain version at "
+                                 f"B={B_PF} Lq={LQ_PF}")
+        if int(out_k.max()) <= 0:
+            raise AssertionError(f"{key}: all scores 0")
+        ms = cuda_ms(lambda: kern(qc, *rows, *args), 3)
+        bms, bby = bound_ms(cells * ops, nbytes, PEAK_INT32)
+        log(f"phase1 {key}: B={B_PF} Lq={LQ_PF} sum(len)={int(lens.sum())} "
+            f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+            f"{counter.launches - n0} launches), plain {plain_ms:.1f} ms, "
+            f"int-identical; bound {bms:.3f} ms ({bby})")
+        name = ("K4 ungapped_scores (stage 1)" if key == "K4"
+                else "K5 gapped_scores (stage 2)")
+        recs[key] = dict(
+            name=name, route="cuda",
+            source="hhsuite_tpu_torch/csrc/prefilter.cu", replaces=src,
+            max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
+    del pack, rows
+
+    # edge shapes through the public (B, Ld) wrappers; 1024 is the
+    # longest query whose table the kernels keep in shared memory, 2000
+    # reads it from global memory
+    edges = [("Lq=1", 1, 60, 257), ("Lq=33", 33, 50, 300),
+             ("Lq=1024", 1024, 120, 96), ("Lq=2000", 2000, 150, 64),
+             ("B=1", LQ_PF, 320, 1), ("all-padding rows", 64, 40, 40),
+             ("row at 255", 128, 90, 80)]
+    for tag, Lq, Ld, B in edges:
+        tab = prefilter_table(rng, Lq)
+        db = rng.integers(0, 219, (B, Ld)).astype(np.int32)
+        dl = rng.integers(Ld // 2, Ld + 1, B).astype(np.int32)
+        if tag == "all-padding rows":
+            dl[::3] = 0
+        if tag == "row at 255":
+            tab[7] = 255
+            db[:, ::4] = 7
+        for b in range(B):
+            db[b, dl[b]:] = 219
+        tab_d, db_d, dl_d = (torch.from_numpy(x).to(dev)
+                             for x in (tab, db, dl))
+        for key, kern, plain, args in (
+                ("K4", P.ungapped_scores, P.ungapped_scores_plain, (50,)),
+                ("K5", P.gapped_scores, P.gapped_scores_plain, (24, 4, 50))):
+            got = kern(tab_d, db_d, dl_d, *args)
+            want = plain(tab_d, db_d, dl_d, *args)
+            streamed = kern(tab_d, db_d, torch.full_like(dl_d, Ld), *args)
+            if not (torch.equal(got, want) and torch.equal(got, streamed)):
+                raise AssertionError(f"{key} {tag}: kernel != plain version")
+            if tag == "row at 255" and int(got.max()) != 255 - 50:
+                raise AssertionError(f"{key} {tag}: no saturation")
+            if tag == "all-padding rows" and int(got[::3].max()) != 0:
+                raise AssertionError(f"{key} {tag}: empty rows score")
+        log(f"phase1 K4/K5 edge {tag} (Lq={Lq} Ld={Ld} B={B}): "
+            f"int-identical, padding streamed == stopped at db_len")
+    torch.cuda.empty_cache()
+    return recs
+
+
 def phase2_golden(work):
     from hhsuite_tpu_torch.cli import main as cli_main
 
@@ -337,6 +467,27 @@ def phase2_golden(work):
                              f"file:\n{got.decode()}")
     log("phase2 golden: blasttab byte-identical "
         f"({len(got.splitlines())} lines)")
+    base = os.path.join(d, "single")
+    for rounds, outs in (("1", {"-blasttab": "golden_hhblits_n1.blasttab"}),
+                         ("2", {"-oa3m": "blits_n2.a3m",
+                                "-blasttab": "blits_n2.m8"})):
+        args = ["hhblits", "-i", os.path.join(FIX, "query.a3m"), "-d", base,
+                "-nocontxt", "-n", rounds,
+                "-o", os.path.join(work, f"blits{rounds}.hhr")]
+        for flag, golden in outs.items():
+            args += [flag, os.path.join(work, golden)]
+        rc = cli_main(args)
+        if rc != 0:
+            raise AssertionError(f"phase2: hhblits -n {rounds} exit {rc}")
+        for golden in outs.values():
+            with open(os.path.join(work, golden), "rb") as f:
+                got = f.read()
+            with open(os.path.join(FIX, golden), "rb") as f:
+                if got != f.read():
+                    raise AssertionError(f"phase2: hhblits -n {rounds} "
+                                         f"differs from {golden}")
+        log(f"phase2 golden: hhblits -n {rounds} "
+            f"{' '.join(outs.values())} byte-identical")
 
 
 def _hhr_body(path):
@@ -377,6 +528,50 @@ def phase3_card_vs_cpu(work, base, query, counters):
         f"({len(a)} lines)")
 
 
+def phase3_hhblits(work, base, query, counters):
+    """hhblits -n 2 through the CLI on the card and on the CPU: .hhr and
+    -oa3m identical; K4 and K5 launched on the card run."""
+    from hhsuite_tpu_torch.cli import main as cli_main
+    from hhsuite_tpu_torch.device import DEVICE_ENV
+
+    def run(tag):
+        t0 = time.perf_counter()
+        rc = cli_main(["hhblits", "-i", query, "-d", base, "-n", "2",
+                       "-o", os.path.join(work, f"p3b_{tag}.hhr"),
+                       "-oa3m", os.path.join(work, f"p3b_{tag}.a3m")])
+        if rc != 0:
+            raise AssertionError(f"phase3: hhblits {tag} run exit {rc}")
+        return time.perf_counter() - t0
+
+    reset(counters)
+    t_card = run("card")
+    n = read(counters)
+    if n["K4"] == 0 or n["K5"] == 0:
+        raise AssertionError(f"phase3: the prefilter kernels did not run "
+                             f"({n})")
+    os.environ[DEVICE_ENV] = "cpu"
+    try:
+        t_cpu = run("cpu")
+    finally:
+        os.environ.pop(DEVICE_ENV, None)
+    a = _hhr_body(os.path.join(work, "p3b_card.hhr"))
+    b = _hhr_body(os.path.join(work, "p3b_cpu.hhr"))
+    if a != b:
+        diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
+        raise AssertionError(f"phase3: hhblits card and CPU .hhr differ: "
+                             f"{diff}")
+    with open(os.path.join(work, "p3b_card.a3m")) as f:
+        a3m = f.read()
+    with open(os.path.join(work, "p3b_cpu.a3m")) as f:
+        if a3m != f.read():
+            raise AssertionError("phase3: hhblits card and CPU -oa3m differ")
+    log(f"phase3 hhblits -n 2, {N_FAMILY_SMALL} templates + "
+        f"{N_DECOYS_SMALL} decoys: card "
+        f"(launches {n}) {t_card:.2f} s, CPU (plain versions) {t_cpu:.2f} s, "
+        f".hhr identical ({len(a)} lines), -oa3m identical "
+        f"({a3m.count(chr(62))} sequences)")
+
+
 def phase4_full(base, query_text, counters):
     import math
 
@@ -407,7 +602,7 @@ def phase4_full(base, query_text, counters):
             f"realign: {'device' if engine._use_device_realign(par, hits) else 'host'}")
         log("phase4 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
-        if any(v == 0 for v in n.values()):
+        if any(n[k] == 0 for k in ("K1", "K2", "K3")):
             raise AssertionError(f"phase4: a kernel of the path was not "
                                  f"launched: {n}")
         if hitlist.N_searched != db.size() or not hits:
@@ -420,13 +615,136 @@ def phase4_full(base, query_text, counters):
                 (h.entry, h.irep, h.score) for h in hits] != last:
             raise AssertionError("phase4: warm run differs from cold run")
         last = [(h.entry, h.irep, h.score) for h in hits]
-    profile_query(lambda: engine.run_hhsearch(
+    profile_query("phase4", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query"),
         set(timers))
     return n
 
 
-def profile_query(run, spans):
+def _delta(now: dict, before: dict) -> dict:
+    return {k: round(v - before.get(k, 0), 4) for k, v in sorted(now.items())
+            if v - before.get(k, 0)}
+
+
+def phase5_hhblits(base, query_text, counters, dev):
+    """hhblits -n 2 with default parameters on the 2^20-entry database,
+    cold then warm; per-round survivors, stages and launches; K4/K5 over
+    the whole resident pack against their plain versions."""
+    import copy
+    import math
+
+    import torch
+
+    from hhsuite_tpu_torch import profiling
+    from hhsuite_tpu_torch.constants import Parameters
+    from hhsuite_tpu_torch.cs.context_lib import ContextLibrary
+    from hhsuite_tpu_torch.matrices import get_substitution_matrix
+    from hhsuite_tpu_torch.ops import prefilter as P
+    from hhsuite_tpu_torch.search import engine
+    from hhsuite_tpu_torch.search.hhblits import (prefilter_pseudocounts,
+                                                  run_hhblits)
+    from hhsuite_tpu_torch.search.prefilter import (build_query_profile,
+                                                    database_cs219)
+    from hhsuite_tpu_torch.search.query import read_query_text
+
+    t0 = time.perf_counter()
+    db = engine.HHDatabase(base)
+    log(f"phase5 database: {db.size()} entries opened in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if db.size() != N_ENTRIES_BIG:
+        raise AssertionError(f"phase5: {db.size()} entries")
+    last = None
+    for tag in ("cold", "warm"):
+        par = Parameters.hhblits_defaults()
+        timers = profiling.enable_stage_timers()
+        rounds = []
+
+        def on_round(info):
+            rounds.append(dict(info, launches=read(counters),
+                               stages=dict(timers)))
+
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, hitlist, _qali = run_hhblits(par, query_text, db, "bench_query",
+                                        on_round=on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read(counters)
+        profiling.disable_stage_timers()
+        hits = hitlist.hits
+        log(f"phase5 {tag}: {wall:.3f} s, {len(rounds)} rounds, final hits "
+            f"{len(hits)}, top hit {hits[0].entry if hits else None} "
+            f"Probab {hits[0].Probab if hits else None}, launches {n}")
+        prev_n, prev_t = {k: 0 for k in n}, {}
+        for r in rounds:
+            log(f"phase5 {tag} round {r['round']}: prefilter stage 1 "
+                f"{r.get('stage1')} / {db.size()}, stage 2 {r.get('stage2')}, "
+                f"new {r['new']}, old {r['old']}, templates searched "
+                f"{r['searched']}, hits {r['hits']}, launches "
+                f"{ {k: v - prev_n[k] for k, v in r['launches'].items()} }")
+            log(f"phase5 {tag} round {r['round']} stages (s): "
+                + json.dumps(_delta(r["stages"], prev_t)))
+            prev_n, prev_t = r["launches"], r["stages"]
+        log(f"phase5 {tag} stages (s): " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        if any(v == 0 for v in n.values()):
+            raise AssertionError(f"phase5: a kernel of the path was not "
+                                 f"launched: {n}")
+        if not hits or not all(math.isfinite(h.score) for h in hits):
+            raise AssertionError("phase5: no hits or non-finite scores")
+        if hits[0].Probab < 99.0:
+            raise AssertionError(f"phase5: top hit Probab {hits[0].Probab}")
+        now = [(h.entry, h.irep, h.score) for h in hits]
+        if last is not None and now != last:
+            raise AssertionError("phase5: warm run differs from cold run")
+        last = now
+    launches = n
+
+    # K4 / K5 over the whole resident pack with round 1's query table
+    _names, _seqs, pack = database_cs219(db, dev)
+    log(f"phase5 resident cs219 pack: {len(pack)} rows, {pack.nbytes} bytes "
+        f"on the card ({int(pack.row_lengths.sum())} states)")
+    par = Parameters.hhblits_defaults()
+    mats = get_substitution_matrix(par.matrix)
+    q, _qali, _fmt = read_query_text(par, query_text, "bench_query", mats)
+    if par.notags:
+        engine.neutralize_tags(q, mats.pb)
+    q_tmp = copy.deepcopy(q)
+    prefilter_pseudocounts(par, q_tmp, mats)
+    qc = torch.from_numpy(build_query_profile(
+        q_tmp, ContextLibrary.default_cs219(), par.prefilter_score_offset,
+        par.prefilter_bit_factor)).to(dev)
+    rows = (pack.states, pack.offsets, pack.row_lengths)
+    gi = par.prefilter_gap_open + par.prefilter_gap_extend
+    for key, kern, plain, args in (
+            ("K4", P.ungapped_scores_packed, P.ungapped_scores_plain,
+             (par.prefilter_score_offset,)),
+            ("K5", P.gapped_scores_packed, P.gapped_scores_plain,
+             (gi, par.prefilter_gap_extend, par.prefilter_score_offset))):
+        got = kern(qc, *rows, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = P.packed_plain(plain, qc, *rows, *args, chunk=1 << 16)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase5: {key} over the whole pack != "
+                                 "plain version")
+        ms = cuda_ms(lambda: kern(qc, *rows, *args), 2)
+        cells = q_tmp.L * int(pack.row_lengths.sum())
+        log(f"phase5 {key} whole pack (Lq={q_tmp.L}, {len(pack)} rows): "
+            f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), plain "
+            f"{plain_s:.2f} s, int-identical")
+    del rows
+    torch.cuda.empty_cache()
+    profile_query("phase5", lambda: run_hhblits(
+        Parameters.hhblits_defaults(), query_text, db, "bench_query"),
+        set(timers))
+    return launches
+
+
+def profile_query(tag, run, spans):
     """One more warm query under torch.profiler: device time by kernel
     (device activities only; the ``spans`` annotation ranges are left
     out) and the device's busy share of the profiled wall time."""
@@ -449,23 +767,25 @@ def profile_query(run, spans):
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy = sum(us for us, _n in by_name.values()) / 1e6
-    log(f"phase4 profiled: {wall:.3f} s wall (profiler on), device busy "
+    log(f"{tag} profiled: {wall:.3f} s wall (profiler on), device busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), "
         f"{sum(n for _us, n in by_name.values())} device activities")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:10]:
-        log(f"phase4 device: {us / 1e3:10.2f} ms {n:7d} x {name[:70]}")
+        log(f"{tag} device: {us / 1e3:10.2f} ms {n:7d} x {name[:70]}")
 
 
 # --------------------------------------------------------- counters ----
 
 def kernel_counters():
+    from hhsuite_tpu_torch.ops.prefilter import gapped_scores, ungapped_scores
     from hhsuite_tpu_torch.ops.viterbi_lanes import (
         viterbi_backtrace_lanes, viterbi_score_lanes_fused)
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
     return {"K1": viterbi_score_lanes_fused, "K2": viterbi_backtrace_lanes,
-            "K3": viterbi_batch_rows}
+            "K3": viterbi_batch_rows, "K4": ungapped_scores,
+            "K5": gapped_scores}
 
 
 def reset(counters):
@@ -480,13 +800,22 @@ def read(counters):
 # ------------------------------------------------------------- main ----
 
 DB_BUILD = """
-import sys
+import sys, time
 sys.path.insert(0, {repo!r})
-from hhsuite_tpu_torch.tools.benchdb import build_bench_db
-for base, n, mix in ((sys.argv[1], 512, False), (sys.argv[2], 8192, True)):
+from hhsuite_tpu_torch.tools.benchdb import build_bench_db, build_decoy_db
+fam512, fam8k, fam_small, dec_small, big = sys.argv[1:6]
+for base, n, mix in ((fam512, 512, False), (fam_small, {nfam}, False),
+                     (fam8k, 8192, True)):
+    t0 = time.perf_counter()
     q = build_bench_db(base, n_templates=n, length_mix=mix)
     with open(base + ".query.a3m", "w") as f:
         f.write(q)
+    print(f"{{base}}: {{n}} templates in {{time.perf_counter() - t0:.1f}} s")
+for base, fam, n in ((dec_small, fam_small, {ndec}),
+                     (big, fam8k, {nbig} - 8192)):
+    t0 = time.perf_counter()
+    total = build_decoy_db(base, fam, n)
+    print(f"{{base}}: {{total}} entries in {{time.perf_counter() - t0:.1f}} s")
 """
 
 
@@ -511,9 +840,16 @@ def main() -> int:
     os.makedirs(work, exist_ok=True)
     base512 = os.path.join(CACHE, "bench512")
     base8k = os.path.join(CACHE, "bench8192mix")
+    base_small = os.path.join(CACHE, f"bench{N_FAMILY_SMALL}")
+    base_small_d = os.path.join(
+        CACHE, f"bench{N_FAMILY_SMALL}_decoys{N_DECOYS_SMALL}")
+    base_big = os.path.join(CACHE, f"bench8192mix_decoys_{N_ENTRIES_BIG}")
     t_db = time.perf_counter()
     db_proc = subprocess.Popen(
-        [sys.executable, "-c", DB_BUILD.format(repo=REPO), base512, base8k],
+        [sys.executable, "-c", DB_BUILD.format(
+            repo=REPO, nfam=N_FAMILY_SMALL, ndec=N_DECOYS_SMALL,
+            nbig=N_ENTRIES_BIG),
+         base512, base8k, base_small, base_small_d, base_big],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         card = card_line()
@@ -528,20 +864,24 @@ def main() -> int:
         from hhsuite_tpu_torch.device import cuda_library, resolve_device
 
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as ex:
-            f_cu = ex.submit(cuda_library, "viterbi")
+        with ThreadPoolExecutor(3) as ex:
+            f_cu = {name: ex.submit(cuda_library, name)
+                    for name in ("viterbi", "prefilter")}
             f_nat = ex.submit(native.require)
-            _lib, info = f_cu.result()
+            infos = {name: f.result()[1] for name, f in f_cu.items()}
             f_nat.result()
         log(f"phase0 build: {time.perf_counter() - t0:.1f} s (nvcc "
-            f"{info.seconds:.1f} s, cached={info.cached}); native host "
-            f"library loaded")
-        for ln in info.log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                log("phase0 ptxas: " + ln.strip())
+            + ", ".join(f"{n}.cu {i.seconds:.1f} s cached={i.cached}"
+                        for n, i in infos.items())
+            + "); native host library loaded")
+        for name, info in infos.items():
+            for ln in info.log.splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                    log(f"phase0 ptxas {name}: " + ln.strip())
         dev = resolve_device("cuda")
 
         recs = phase1_kernels(dev)
+        recs.update(phase1_prefilter(dev))
         log("phase1 ok")
         phase2_golden(work)
         log("phase2 ok")
@@ -549,14 +889,20 @@ def main() -> int:
         out, _ = db_proc.communicate(timeout=900)
         if db_proc.returncode != 0:
             raise AssertionError(f"database build failed:\n{out}")
+        for ln in out.splitlines():
+            log("database build: " + ln)
         log(f"databases ready after {time.perf_counter() - t_db:.1f} s")
         counters = kernel_counters()
         phase3_card_vs_cpu(work, base512, base512 + ".query.a3m", counters)
+        phase3_hhblits(work, base_small_d, base_small + ".query.a3m",
+                       counters)
         log("phase3 ok")
         with open(base8k + ".query.a3m") as f:
             q8k = f.read()
         launches = phase4_full(base8k, q8k, counters)
         log("phase4 ok")
+        launches_blits = phase5_hhblits(base_big, q8k, counters, dev)
+        log("phase5 ok")
     except Exception:
         traceback.print_exc()
         return 1
@@ -566,10 +912,13 @@ def main() -> int:
             db_proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
+    # launches: K1-K3 on the hhsearch path (phase 4), K4/K5 on the
+    # hhblits path (phase 5); each also with its hhblits count
     kernels = []
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", "K4", "K5"):
         r = dict(recs[key])
-        r["launches"] = launches[key]
+        r["launches"] = (launches if key < "K4" else launches_blits)[key]
+        r["launches_hhblits"] = launches_blits[key]
         kernels.append(r)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -2,6 +2,8 @@
 
 Usage:  python -m hhsuite_tpu_torch hhsearch -i q.a3m -d db [-o out.hhr]
         [-blasttab f] [-scores f] [-atab f] [options]
+        python -m hhsuite_tpu_torch hhblits -i q.a3m -d db [-o out.hhr]
+        [-blasttab f] [-oa3m f] [-n rounds] [options]
 
 Runs on the CUDA card unless ``HHSUITE_TPU_TORCH_DEVICE=cpu`` asks for
 the CPU (plain PyTorch versions of every kernel).  Output-file wiring
@@ -92,6 +94,28 @@ def _search_outputs(par, q, q_tmp, hitlist, qali, mats):
                          par.qid, par.Ndiff, par.qsc, argv), par.append)
 
 
+def cmd_hhblits(argv: List[str]) -> int:
+    from .matrices import get_substitution_matrix
+    from .search.engine import open_databases
+    from .search.hhblits import run_hhblits
+
+    par = Parameters.hhblits_defaults()
+    parse_args(argv, par)
+    if not par.infile or not par.db_bases:
+        print("hhblits -i <query a3m/hhm> -d <db basename> "
+              "[-o out.hhr] [-blasttab f] [-oa3m f] [-n rounds] ...",
+              file=sys.stderr)
+        return 4
+    db = open_databases(par.db_bases)
+    text = _read_infile(par)
+    q, hitlist, qali = run_hhblits(par, text, db, par.infile)
+    mats = get_substitution_matrix(par.matrix)
+    if not par.outfile and not par.m8file and not par.scorefile:
+        par.outfile = "stdout"
+    _search_outputs(par, q, None, hitlist, qali, mats)
+    return 0
+
+
 def cmd_hhsearch(argv: List[str]) -> int:
     from .matrices import get_substitution_matrix
     from .search.engine import open_databases, run_hhsearch
@@ -113,6 +137,7 @@ def cmd_hhsearch(argv: List[str]) -> int:
 
 
 COMMANDS = {
+    "hhblits": cmd_hhblits,
     "hhsearch": cmd_hhsearch,
 }
 

@@ -1,4 +1,5 @@
-"""Search engines: hhalign (pairwise) and hhsearch (database, no prefilter).
+"""Search engines: hhalign (pairwise) and hhsearch (database, no prefilter);
+hhblits (prefilter, iterations) is in :mod:`search.hhblits`.
 
 Entry points take ``device=`` (default: the CUDA card; ``"cpu"`` runs
 every kernel's plain PyTorch version) and raise when the card is asked
@@ -447,13 +448,14 @@ def template_hmm_from_text(text: str, name: str, par: Parameters,
 
 
 def _use_device_realign(par: Parameters, selected) -> bool:
-    """Always False: MAC realignment runs on the host decoder (native
-    C++ forward/backward/MAC, the reference-exact path).  The JAX
-    package's batched device F/B/MAC (ops/posterior_batch.py:
+    """Always False: MAC realignment of ``hhsearch`` and of every
+    ``hhblits`` round (premerge included) runs on the host decoder
+    (native C++ forward/backward/MAC, the reference-exact path).  The
+    JAX package's batched device F/B/MAC (ops/posterior_batch.py:
     fb_mac_batch, realign_mask_device, mac_walk_packed8) is plain jnp,
-    not a TPU kernel, and is not ported yet; the host path is also what
-    the JAX package itself takes off-TPU, for -omat and for fewer than
-    4 hits."""
+    not a TPU kernel; its port follows that of the last TPU kernel, the
+    SS score sweep.  The host path is also what the JAX package itself
+    takes off-TPU, for -omat and for fewer than 4 hits."""
     return False
 
 

@@ -1,19 +1,25 @@
-"""The CUDA Viterbi kernels (K1, K2, K3) against their plain PyTorch
-versions on the card, bit for bit: phase 1 of ``chip_smoke.py`` at small
-shapes.  Needs a CUDA card; elsewhere every test skips.  On a machine
-with a card:  python -m pytest -m gpu tests/test_torch_kernels_cuda.py
+"""The CUDA kernels against their plain PyTorch versions on the card:
+the Viterbi kernels (K1, K2, K3) bit for bit, the prefilter kernels (K4,
+K5) as integers — phase 1 of ``chip_smoke.py``, at small shapes, at the
+prefilter's path shape and at long queries.  Needs a CUDA card;
+elsewhere every test skips.  On a machine with a card:
+python -m pytest -m gpu tests/test_torch_kernels_cuda.py
 """
 
 import numpy as np
 import pytest
 import torch
 
+from hhsuite_tpu_torch.ops import prefilter as PK
 from hhsuite_tpu_torch.ops import viterbi as TV
 from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
                                                  viterbi_score_lanes_fused,
                                                  viterbi_score_lanes_plain)
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
+from hhsuite_tpu_torch.search.prefilter import to_device_cs219
+from test_torch_prefilter import SHAPES as PF_SHAPES
+from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
 
 pytestmark = pytest.mark.gpu
@@ -108,3 +114,45 @@ def test_kernels_take_exclusion_masks_in_place(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _same(a, b)
+
+
+PF_STAGES = {"K4": (PK.ungapped_scores, PK.ungapped_scores_plain,
+                    PK.ungapped_scores_packed, (50,)),
+             "K5": (PK.gapped_scores, PK.gapped_scores_plain,
+                    PK.gapped_scores_packed, (24, 4, 50))}
+
+
+@pytest.mark.parametrize("shape", PF_SHAPES + [
+    (1024, 80, 40, 21),      # the longest table kept in shared memory
+    (1025, 80, 40, 22),      # table read from global memory
+    (2000, 150, 64, 23)])
+@pytest.mark.parametrize("stage", ["K4", "K5"])
+def test_prefilter_kernel_int_identical(cuda, shape, stage):
+    kern, plain, _packed, args = PF_STAGES[stage]
+    qc, db, dl = (torch.from_numpy(x).to(cuda) for x in pf_inputs(*shape))
+    n = kern.launches
+    got = kern(qc, db, dl, *args)
+    assert kern.launches == n + 1
+    want = plain(qc, db, dl, *args)
+    streamed = kern(qc, db, torch.full_like(dl, db.shape[1]), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, streamed)
+
+
+@pytest.mark.parametrize("stage", ["K4", "K5"])
+def test_prefilter_kernel_path_shape(cuda, stage):
+    """chip_smoke's phase-1 shape: 65,536 long-tail sequences in the
+    resident layout, Lq = 300."""
+    import chip_smoke
+
+    _kern, plain, packed, args = PF_STAGES[stage]
+    rng = np.random.default_rng(5)
+    lens = chip_smoke.long_tail_lengths(rng, 1 << 16)
+    pack = to_device_cs219([rng.integers(0, 219, n, dtype=np.uint8).tobytes()
+                            for n in lens], cuda)
+    qc = torch.from_numpy(chip_smoke.prefilter_table(rng, 300)).to(cuda)
+    rows = (pack.states, pack.offsets, pack.row_lengths)
+    got = packed(qc, *rows, *args)
+    want = PK.packed_plain(plain, qc, *rows, *args, chunk=1 << 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.max()) > 0
