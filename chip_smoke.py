@@ -11,19 +11,26 @@ and no result line:
    ``csrc/prefilter.cu``, in parallel) and of the native host library,
    and (in a background process) the benchmark databases under
    ``chip_smoke_cache/``: the 512-, 128- and 8192-template families,
-   and two with decoys (128 + 16,384; 8192 + 1,040,384 = 2^20 entries);
+   two with decoys (128 + 16,384; 8192 + 1,040,384 = 2^20 entries) and
+   two with secondary structure (``tools/benchdb.py:build_ss_db``: the
+   128 and 8192 families with ``>ss_pred``/``>ss_conf`` rows);
 1. each kernel against its plain PyTorch version on the card at the
-   search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3)
-   bit-identical, the prefilter kernels (K4, K5) int-identical at the
-   path's shape and at edge shapes; times from CUDA events;
+   search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3,
+   K6 with the SS lookup table) bit-identical, K6's dense form and its
+   LUT form bit-identical, K6 without SS equal to K1 exact, K6 at edge
+   shapes; the prefilter kernels (K4, K5) int-identical at the path's
+   shape and at edge shapes; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
-   the reference's (tests/fixtures);
+   the reference's (tests/fixtures); ``hhsearch`` on the golden SS
+   database (``-ssm 2``): the reference's scores within
+   tests/test_ss_scoring.py's tolerances;
 3. the 512-template database: ``hhsearch`` with the funnel on (``-Z 100
-   -B 100 -realign_max 100``), and ``hhblits -n 2`` on its first 128
-   templates plus 16,384 decoys, each on the card and on the CPU with
-   the plain versions: the ``.hhr`` files (and ``-oa3m``) must agree
-   apart from Date/Command;
+   -B 100 -realign_max 100``), the 128-template SS database with the
+   SS funnel on (``-Z 30 -B 30 -realign_max 30``), and ``hhblits -n 2``
+   on the first 128 templates plus 16,384 decoys, each on the card and
+   on the CPU with the plain versions: the ``.hhr`` files (and
+   ``-oa3m``) must agree apart from Date/Command;
 4. the 8192-template long-tail database, ``hhsearch`` with default
    parameters, cold and warm: wall and host-stage times, hit counts and
    the Viterbi kernels' launch counts on that run (each must be > 0);
@@ -31,7 +38,11 @@ and no result line:
    cold and warm: per round the prefilter survivors, templates, hits,
    stage times and the launches of K1-K5 (each must be > 0 over the
    run); K4 and K5 over the whole resident cs219 pack against their
-   plain versions; a profiled warm query.
+   plain versions; a profiled warm query;
+6. ``hhsearch`` with default parameters (``-ssm 2``: SS in the DP) on the
+   8192-template SS database with the family's SS-annotated query, cold
+   and warm: as phase 4, with K1, K3 and K6 launched, and whether the
+   funnel switched itself off; a profiled warm query.
 
 The last lines are the card (``nvidia-smi``), one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -64,6 +75,9 @@ PEAK_BYTES = 3.35e12
 OPS_DOT = 39
 OPS_K1 = {"fast": OPS_DOT + 12 + 28, "exact": OPS_DOT + 10 + 28}
 OPS_BT = OPS_DOT + 10 + 45
+# K6: K1 exact plus the SS add (the LUT form's shared-memory load is not
+# an f32 operation)
+OPS_K6 = OPS_K1["exact"] + 1
 
 # INT32 rate of the H100 SXM: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock = 1.67e13 op/s
@@ -334,6 +348,112 @@ def phase1_kernels(dev):
     return recs
 
 
+def ss_lut_inputs(Lq, Lt, B, seed, device):
+    """A seeded S33-shaped SS table (NSSPRED x MAXCF x NSSPRED x MAXCF =
+    1936 floats, in the range of ssw * S33) and query / template offsets
+    into it, the form search/viterbi_search.py:build_ss_lut gives; the
+    offsets reach both ends of the table."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lut = (rng.random(1936) * 0.6 - 0.3).astype(np.float32)
+    qidx = (rng.integers(0, 44, Lq) * 44).astype(np.int32)
+    tidx = rng.integers(0, 44, (B, Lt)).astype(np.int32)
+    qidx[0], tidx[0, 0] = 0, 0
+    qidx[-1], tidx[-1, -1] = 43 * 44, 43
+    return tuple(torch.from_numpy(x).to(device) for x in (lut, qidx, tidx))
+
+
+def ss_dense(lut, qidx, tidx):
+    """The dense (B, Lq+1, Lt+1) SS matrix of the LUT form, row 0 and
+    column 0 zero, as a view of lanes-last storage (K6's dense layout),
+    filled one query row at a time."""
+    import torch
+
+    B, Lt = tidx.shape
+    Lq = qidx.shape[0]
+    out = torch.zeros((Lq + 1, Lt + 1, B), dtype=torch.float32,
+                      device=lut.device)
+    tT = tidx.T.long()
+    for i in range(Lq):
+        out[i + 1, 1:] = lut[qidx[i].long() + tT]
+    return out.permute(2, 0, 1)
+
+
+def phase1_k6(dev):
+    """K6 against its plain version at the SS sweep's path shape (LUT
+    form), its dense form, K1 exact, and edge shapes; returns its record
+    (without launch counts)."""
+    import torch
+
+    from hhsuite_tpu_torch.ops.viterbi_lanes import (
+        viterbi_score_lanes, viterbi_score_lanes_fused,
+        viterbi_score_lanes_plain)
+
+    shift = -0.03
+
+    def check(tag, Lq, Lt, B, seed, timed=False):
+        qp, qtr, tp, ttr, tL = synth_inputs(Lq, Lt, B, seed, dev)
+        lut, qidx, tidx = ss_lut_inputs(Lq, Lt, B, seed + 1, dev)
+        kw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+        out_k = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tL, shift, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not bits_equal(out_k, out_p):
+            raise AssertionError(f"K6 {tag}: kernel != plain version "
+                                 f"(max |d| {max_abs(out_k, out_p)})")
+        if not torch.isfinite(out_k).all():
+            raise AssertionError(f"K6 {tag}: non-finite scores")
+        dense = ss_dense(lut, qidx, tidx)
+        out_d = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift,
+                                    ss_score=dense)
+        if not bits_equal(out_d, out_k):
+            raise AssertionError(f"K6 {tag}: dense form != LUT form")
+        out_n = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift)
+        out_e = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL, shift,
+                                          si_mode="exact")
+        if not bits_equal(out_n, out_e):
+            raise AssertionError(f"K6 {tag}: no SS != K1 exact")
+        if not timed:
+            log(f"phase1 K6 edge {tag} (Lq={Lq} Lt={Lt} B={B}): "
+                "bit-identical; dense == LUT; no SS == K1 exact")
+            return None
+        n0 = viterbi_score_lanes.launches
+        ms = cuda_ms(lambda: viterbi_score_lanes(qp, qtr, tp, ttr, tL,
+                                                 shift, **kw), 3)
+        dense_ms = cuda_ms(lambda: viterbi_score_lanes(
+            qp, qtr, tp, ttr, tL, shift, ss_score=dense), 2)
+        launches = viterbi_score_lanes.launches - n0
+        needed = Lq * int(tL.sum())
+        nbytes = ((Lq * 27 + B * (Lt + 2) * 27) * 4 + B * 4      # profiles
+                  + (lut.numel() + Lq + B * Lt) * 4 + B * 4)     # SS, out
+        bms, bby = bound_ms(needed * OPS_K6, nbytes)
+        log(f"phase1 K6 LUT: B={B} Lq={Lq} Lt={Lt} {ms:.3f} ms "
+            f"({Lq * Lt * B / ms / 1e6:.1f} GCUPS, {launches} launches), "
+            f"dense {dense_ms:.3f} ms, plain {plain_ms:.1f} ms; "
+            f"bit-identical, dense == LUT, no SS == K1 exact; bound "
+            f"{bms:.3f} ms ({bby})")
+        return dict(
+            name="K6 viterbi_score_lanes (SS lookup table)", route="cuda",
+            source="hhsuite_tpu_torch/csrc/viterbi.cu",
+            replaces="hhsuite_tpu/ops/viterbi_lanes.py:62",
+            max_abs_err=max_abs(out_k, out_p), ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=bby, library_ms=None, dense_ms=dense_ms)
+
+    rec = check("path shape", LQ, LT, B_K1, SEED + 20, timed=True)
+    # one partial ROWS strip, a full strip plus one row, two strips plus
+    # one row; one template; one template column
+    for k, (tag, Lq, Lt, B) in enumerate((
+            ("Lq=1", 1, 40, 33), ("Lq=9", 9, 40, 33), ("Lq=17", 17, 50, 65),
+            ("B=1", LQ, LT, 1), ("Lt=1", 25, 1, 40))):
+        check(tag, Lq, Lt, B, SEED + 30 + 2 * k)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def long_tail_lengths(rng, n, L0=300):
     """Lengths of the benchmark databases' long-tail mix
     (tools/benchdb.py, length_mix=True): 70% ~L0, 20% half-length
@@ -490,42 +610,106 @@ def phase2_golden(work):
             f"{' '.join(outs.values())} byte-identical")
 
 
+def phase2_golden_ss(work):
+    """hhsearch (-ssm 2, the default) through the CLI on the golden SS
+    database: tests/test_ss_scoring.py's checks."""
+    from hhsuite_tpu_torch.cli import main as cli_main
+
+    d = os.path.join(work, "golden_ss")
+    os.makedirs(d, exist_ok=True)
+    for f in ("a3m", "cs219"):
+        for ext in (".ffdata", ".ffindex"):
+            shutil.copy(os.path.join(FIX, f"ss_db_{f}{ext}"),
+                        os.path.join(d, f"db_{f}{ext}"))
+    hhr, m8 = os.path.join(work, "ss.hhr"), os.path.join(work, "ss.m8")
+    rc = cli_main(["hhsearch", "-i", os.path.join(FIX, "query_ss.a3m"),
+                   "-d", os.path.join(d, "db"), "-nocontxt", "-o", hhr,
+                   "-blasttab", m8])
+    if rc != 0:
+        raise AssertionError(f"phase2: SS hhsearch exit {rc}")
+    with open(hhr) as f:
+        lines = f.read().splitlines()
+    top = lines.index(next(ln for ln in lines if ln.startswith(" No Hit")))
+    rows = [ln.split() for ln in lines[top + 1: top + 3]]
+    # Score, SS, Cols, query range, template range from the right
+    (s1, ss1, c1, q1, t1), (s2, ss2) = rows[0][-6:-1], rows[1][-6:-4]
+    if not (abs(float(s1) - 1376.0) < 0.2 and abs(float(ss1) - 34.6) < 0.05
+            and int(c1) == 431 and (q1, t1) == ("1-431", "1-431")
+            and abs(float(s2) - 14.4) < 0.2
+            and abs(float(ss2) - 0.5) < 0.05):
+        raise AssertionError(f"phase2: SS hits differ from golden_ss: "
+                             f"{rows}")
+    with open(m8) as f:
+        got = f.read().splitlines()
+    with open(os.path.join(FIX, "golden_ss.m8")) as f:
+        want = f.read().splitlines()
+    if len(got) != len(want):
+        raise AssertionError("phase2: SS blasttab line count differs")
+    for g, w in zip(got, want):
+        gt, wt = g.split("\t"), w.split("\t")
+        if (gt[:10] != wt[:10]
+                or abs(float(gt[10]) - float(wt[10]))
+                > 0.02 * max(float(wt[10]), 1e-300)
+                or abs(float(gt[11]) - float(wt[11])) > 0.15):
+            raise AssertionError(f"phase2: SS blasttab {g!r} vs {w!r}")
+    with open(os.path.join(FIX, "golden_ss.hhr")) as f:
+        want_ss = [ln for ln in f.read().splitlines()
+                   if ln.startswith("Q ss_pred")]
+    if [ln for ln in lines if ln.startswith("Q ss_pred")] != want_ss:
+        raise AssertionError("phase2: Q ss_pred rows differ from golden")
+    log(f"phase2 golden SS: top hit {s1} SS {ss1} {c1} cols {q1}/{t1}, "
+        f"second {s2} SS {ss2}; blasttab within tolerance, Q ss_pred rows "
+        "identical")
+
+
 def _hhr_body(path):
     with open(path) as f:
         return [ln for ln in f.read().splitlines()
                 if not ln.startswith(("Date", "Command"))]
 
 
-def phase3_card_vs_cpu(work, base, query, counters):
+def phase3_card_vs_cpu(work, tag, base, query, counters, cap, sweep):
+    """hhsearch -Z/-B/-realign_max ``cap`` through the CLI on the card
+    (the funnel on: ``sweep``, the sweep kernel, must launch) and on the
+    CPU: the .hhr files must agree apart from Date/Command."""
+    from hhsuite_tpu_torch import profiling
     from hhsuite_tpu_torch.cli import main as cli_main
     from hhsuite_tpu_torch.device import DEVICE_ENV
 
-    args = ["hhsearch", "-i", query, "-d", base, "-Z", "100", "-B", "100",
-            "-realign_max", "100"]
+    args = ["hhsearch", "-i", query, "-d", base, "-Z", cap, "-B", cap,
+            "-realign_max", cap]
+    out = {k: os.path.join(work, f"p3_{tag.split()[0]}_{k}.hhr")
+           for k in ("card", "cpu")}
+    timers = profiling.enable_stage_timers()
     reset(counters)
     t0 = time.perf_counter()
-    if cli_main(args + ["-o", os.path.join(work, "p3_card.hhr")]) != 0:
-        raise AssertionError("phase3: card run failed")
+    try:
+        if cli_main(args + ["-o", out["card"]]) != 0:
+            raise AssertionError(f"phase3 {tag}: card run failed")
+    finally:
+        profiling.disable_stage_timers()
     t_card = time.perf_counter() - t0
     n = read(counters)
-    if n["K1"] == 0:
-        raise AssertionError(f"phase3: the funnel did not run ({n})")
+    funnel = (int(timers.get("funnel_blocks", 0)),
+              int(timers.get("funnel_dropped", 0)))
+    if n[sweep] == 0:
+        raise AssertionError(f"phase3 {tag}: the funnel did not run ({n})")
     os.environ[DEVICE_ENV] = "cpu"
     try:
         t0 = time.perf_counter()
-        if cli_main(args + ["-o", os.path.join(work, "p3_cpu.hhr")]) != 0:
-            raise AssertionError("phase3: CPU run failed")
+        if cli_main(args + ["-o", out["cpu"]]) != 0:
+            raise AssertionError(f"phase3 {tag}: CPU run failed")
         t_cpu = time.perf_counter() - t0
     finally:
         os.environ.pop(DEVICE_ENV, None)
-    a = _hhr_body(os.path.join(work, "p3_card.hhr"))
-    b = _hhr_body(os.path.join(work, "p3_cpu.hhr"))
+    a, b = _hhr_body(out["card"]), _hhr_body(out["cpu"])
     if a != b:
         diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
-        raise AssertionError(f"phase3: card and CPU .hhr differ: {diff}")
-    log(f"phase3 512 templates: card (funnel, launches {n}) {t_card:.2f} s, "
-        f"CPU (plain versions) {t_cpu:.2f} s, .hhr identical "
-        f"({len(a)} lines)")
+        raise AssertionError(f"phase3 {tag}: card and CPU .hhr differ: "
+                             f"{diff}")
+    log(f"phase3 {tag}: card (funnel blocks {funnel[0]}, switched off "
+        f"{funnel[1]}; launches {n}) {t_card:.2f} s, CPU (plain versions) "
+        f"{t_cpu:.2f} s, .hhr identical ({len(a)} lines)")
 
 
 def phase3_hhblits(work, base, query, counters):
@@ -599,7 +783,8 @@ def phase4_full(base, query_text, counters):
         log(f"phase4 {tag}: {wall:.3f} s, templates searched "
             f"{hitlist.N_searched}, hits {len(hits)} (full "
             f"{len(hits) - light}, light {light}), launches {n}, "
-            f"realign: {'device' if engine._use_device_realign(par, hits) else 'host'}")
+            f"{_funnel_counts(timers)}, realign: "
+            f"{'device' if engine._use_device_realign(par, hits) else 'host'}")
         log("phase4 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
         if any(n[k] == 0 for k in ("K1", "K2", "K3")):
@@ -621,9 +806,18 @@ def phase4_full(base, query_text, counters):
     return n
 
 
+def _funnel_counts(timers: dict) -> str:
+    """Take the search's funnel counts out of a stage-timer dict (which
+    then holds seconds only) and say them."""
+    blocks = int(timers.pop("funnel_blocks", 0))
+    dropped = int(timers.pop("funnel_dropped", 0))
+    return (f"funnel blocks {blocks}, switched itself off "
+            f"{'yes' if dropped else 'no'}")
+
+
 def _delta(now: dict, before: dict) -> dict:
     return {k: round(v - before.get(k, 0), 4) for k, v in sorted(now.items())
-            if v - before.get(k, 0)}
+            if v - before.get(k, 0) and not k.startswith("funnel_")}
 
 
 def phase5_hhblits(base, query_text, counters, dev):
@@ -675,7 +869,8 @@ def phase5_hhblits(base, query_text, counters, dev):
         hits = hitlist.hits
         log(f"phase5 {tag}: {wall:.3f} s, {len(rounds)} rounds, final hits "
             f"{len(hits)}, top hit {hits[0].entry if hits else None} "
-            f"Probab {hits[0].Probab if hits else None}, launches {n}")
+            f"Probab {hits[0].Probab if hits else None}, launches {n}, "
+            f"{_funnel_counts(timers)}")
         prev_n, prev_t = {k: 0 for k in n}, {}
         for r in rounds:
             log(f"phase5 {tag} round {r['round']}: prefilter stage 1 "
@@ -688,7 +883,7 @@ def phase5_hhblits(base, query_text, counters, dev):
             prev_n, prev_t = r["launches"], r["stages"]
         log(f"phase5 {tag} stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
-        if any(v == 0 for v in n.values()):
+        if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")):
             raise AssertionError(f"phase5: a kernel of the path was not "
                                  f"launched: {n}")
         if not hits or not all(math.isfinite(h.score) for h in hits):
@@ -744,6 +939,64 @@ def phase5_hhblits(base, query_text, counters, dev):
     return launches
 
 
+def phase6_ss(base, query_text, counters):
+    """hhsearch defaults (-ssm 2) on the 8192-template SS database with
+    the SS-annotated query, cold then warm; K6 (the SS sweep) and K3 (the
+    SS backtrace pass) must launch."""
+    import math
+
+    import torch
+
+    from hhsuite_tpu_torch import profiling
+    from hhsuite_tpu_torch.constants import Parameters
+    from hhsuite_tpu_torch.search import engine
+
+    db = engine.HHDatabase(base)
+    last = None
+    for tag in ("cold", "warm"):
+        par = Parameters.hhsearch_defaults()
+        timers = profiling.enable_stage_timers()
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, hitlist = engine.run_hhsearch(par, query_text, db,
+                                         "bench_query_ss")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read(counters)
+        profiling.disable_stage_timers()
+        hits = hitlist.hits
+        light = sum(1 for h in hits if h.light)
+        log(f"phase6 {tag}: {wall:.3f} s, ssm {par.ssm}, templates "
+            f"searched {hitlist.N_searched}, hits {len(hits)} (full "
+            f"{len(hits) - light}, light {light}), top hit "
+            f"{hits[0].entry if hits else None} Probab "
+            f"{hits[0].Probab if hits else None} SS "
+            f"{hits[0].score_ss if hits else None}, launches {n}, "
+            f"{_funnel_counts(timers)}")
+        log("phase6 " + tag + " stages (s): " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        if q.nss_pred < 0:
+            raise AssertionError("phase6: the query carries no SS")
+        if n["K6"] == 0 or n["K3"] == 0:
+            raise AssertionError(f"phase6: K6 and K3 must launch: {n}")
+        if hitlist.N_searched != db.size() or not hits:
+            raise AssertionError("phase6: wrong number of templates/hits")
+        if not all(math.isfinite(h.score) for h in hits):
+            raise AssertionError("phase6: non-finite scores")
+        if hits[0].Probab < 99.0 or hits[0].score_ss <= 0.0:
+            raise AssertionError(f"phase6: top hit Probab {hits[0].Probab}"
+                                 f" SS {hits[0].score_ss}")
+        now = [(h.entry, h.irep, h.score, h.score_ss) for h in hits]
+        if last is not None and now != last:
+            raise AssertionError("phase6: warm run differs from cold run")
+        last = now
+    profile_query("phase6", lambda: engine.run_hhsearch(
+        Parameters.hhsearch_defaults(), query_text, db, "bench_query_ss"),
+        set(timers))
+    return n
+
+
 def profile_query(tag, run, spans):
     """One more warm query under torch.profiler: device time by kernel
     (device activities only; the ``spans`` annotation ranges are left
@@ -780,12 +1033,13 @@ def profile_query(tag, run, spans):
 def kernel_counters():
     from hhsuite_tpu_torch.ops.prefilter import gapped_scores, ungapped_scores
     from hhsuite_tpu_torch.ops.viterbi_lanes import (
-        viterbi_backtrace_lanes, viterbi_score_lanes_fused)
+        viterbi_backtrace_lanes, viterbi_score_lanes,
+        viterbi_score_lanes_fused)
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
     return {"K1": viterbi_score_lanes_fused, "K2": viterbi_backtrace_lanes,
             "K3": viterbi_batch_rows, "K4": ungapped_scores,
-            "K5": gapped_scores}
+            "K5": gapped_scores, "K6": viterbi_score_lanes}
 
 
 def reset(counters):
@@ -802,15 +1056,25 @@ def read(counters):
 DB_BUILD = """
 import sys, time
 sys.path.insert(0, {repo!r})
-from hhsuite_tpu_torch.tools.benchdb import build_bench_db, build_decoy_db
-fam512, fam8k, fam_small, dec_small, big = sys.argv[1:6]
+from hhsuite_tpu_torch.tools.benchdb import (build_bench_db, build_decoy_db,
+                                             build_ss_db, ss_composition)
+fam512, fam8k, fam_small, dec_small, big, ss_small, ss8k = sys.argv[1:8]
+queries = {{}}
 for base, n, mix in ((fam512, 512, False), (fam_small, {nfam}, False),
                      (fam8k, 8192, True)):
     t0 = time.perf_counter()
-    q = build_bench_db(base, n_templates=n, length_mix=mix)
+    q = queries[base] = build_bench_db(base, n_templates=n, length_mix=mix)
     with open(base + ".query.a3m", "w") as f:
         f.write(q)
     print(f"{{base}}: {{n}} templates in {{time.perf_counter() - t0:.1f}} s")
+for base, fam in ((ss_small, fam_small), (ss8k, fam8k)):
+    t0 = time.perf_counter()
+    q = build_ss_db(base, fam, queries[fam])
+    with open(base + ".query.a3m", "w") as f:
+        f.write(q)
+    comp = " ".join(f"{{k}} {{v:.3f}}" for k, v in ss_composition(base).items())
+    print(f"{{base}}: SS rows in {{time.perf_counter() - t0:.1f}} s, "
+          f"composition {{comp}}")
 for base, fam, n in ((dec_small, fam_small, {ndec}),
                      (big, fam8k, {nbig} - 8192)):
     t0 = time.perf_counter()
@@ -844,12 +1108,15 @@ def main() -> int:
     base_small_d = os.path.join(
         CACHE, f"bench{N_FAMILY_SMALL}_decoys{N_DECOYS_SMALL}")
     base_big = os.path.join(CACHE, f"bench8192mix_decoys_{N_ENTRIES_BIG}")
+    base_ss_small = os.path.join(CACHE, f"bench{N_FAMILY_SMALL}_ss")
+    base_ss8k = os.path.join(CACHE, "bench8192mix_ss")
     t_db = time.perf_counter()
     db_proc = subprocess.Popen(
         [sys.executable, "-c", DB_BUILD.format(
             repo=REPO, nfam=N_FAMILY_SMALL, ndec=N_DECOYS_SMALL,
             nbig=N_ENTRIES_BIG),
-         base512, base8k, base_small, base_small_d, base_big],
+         base512, base8k, base_small, base_small_d, base_big, base_ss_small,
+         base_ss8k],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         card = card_line()
@@ -881,9 +1148,11 @@ def main() -> int:
         dev = resolve_device("cuda")
 
         recs = phase1_kernels(dev)
+        recs["K6"] = phase1_k6(dev)
         recs.update(phase1_prefilter(dev))
         log("phase1 ok")
         phase2_golden(work)
+        phase2_golden_ss(work)
         log("phase2 ok")
 
         out, _ = db_proc.communicate(timeout=900)
@@ -893,7 +1162,11 @@ def main() -> int:
             log("database build: " + ln)
         log(f"databases ready after {time.perf_counter() - t_db:.1f} s")
         counters = kernel_counters()
-        phase3_card_vs_cpu(work, base512, base512 + ".query.a3m", counters)
+        phase3_card_vs_cpu(work, "512 templates", base512,
+                           base512 + ".query.a3m", counters, "100", "K1")
+        phase3_card_vs_cpu(work, f"{N_FAMILY_SMALL} SS templates",
+                           base_ss_small, base_ss_small + ".query.a3m",
+                           counters, "30", "K6")
         phase3_hhblits(work, base_small_d, base_small + ".query.a3m",
                        counters)
         log("phase3 ok")
@@ -903,6 +1176,9 @@ def main() -> int:
         log("phase4 ok")
         launches_blits = phase5_hhblits(base_big, q8k, counters, dev)
         log("phase5 ok")
+        with open(base_ss8k + ".query.a3m") as f:
+            launches_ss = phase6_ss(base_ss8k, f.read(), counters)
+        log("phase6 ok")
     except Exception:
         traceback.print_exc()
         return 1
@@ -913,12 +1189,17 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # launches: K1-K3 on the hhsearch path (phase 4), K4/K5 on the
-    # hhblits path (phase 5); each also with its hhblits count
+    # hhblits path (phase 5), K6 on the SS hhsearch path (phase 6); each
+    # also with its hhblits and SS counts
+    main_path = {"K1": launches, "K2": launches, "K3": launches,
+                 "K4": launches_blits, "K5": launches_blits,
+                 "K6": launches_ss}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
         r = dict(recs[key])
-        r["launches"] = (launches if key < "K4" else launches_blits)[key]
+        r["launches"] = main_path[key][key]
         r["launches_hhblits"] = launches_blits[key]
+        r["launches_ss"] = launches_ss[key]
         kernels.append(r)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,10 @@
 //   K3  hhsuite_tpu/ops/viterbi_rows.py  : viterbi_batch_rows
 //       (cell-off mask, optional SS score, local or global, backtrace)
 //       -> vit_bt_kernel<HAS_CO, HAS_SS, LOCAL> / hh_vit_bt
+//   K6  hhsuite_tpu/ops/viterbi_lanes.py : viterbi_score_lanes
+//       (score-only sweep, Si = log2f4(dot) + shift + a secondary-
+//       structure term, dense or through a lookup table; f32 Si only)
+//       -> vit_score_kernel<false, SS_DENSE | SS_LUT> / hh_vit_score
 //
 // Design.  One template per thread, as the reference maps templates to
 // SIMD lanes (hhviterbialgorithm.cpp:45-497).  A thread walks the query in
@@ -34,11 +38,17 @@
 // What bounds it on the card.  Per cell: 39 FP32 operations for the dot
 // (20 mul + 19 add), 10-12 for the log2 and 28 (K1) or ~45 (K2/K3, with
 // the backtrace-bit compares; K3 +5 with a cell-off mask) for the DP,
-// all on CUDA cores: 79 (K1 fast) to ~100 (K3) operations per cell
+// K6 one more add for the SS term (plus, in the LUT form, one shared-
+// memory load: the table, <= 1936 floats, sits in shared memory beside
+// the strip's query rows and their table offsets; the template's offset
+// of column j is one coalesced int32 load per column, like its
+// transitions), all on CUDA cores: 77 (K1 exact; K6 78, K1 fast 79) to
+// ~100 (K3) operations per cell
 // against the card's 67 TFLOP/s FP32 peak, which counts an FMA as two —
 // with FMA contraction off (exactness) the reachable rate is half of it.
 // K2/K3 also write one backtrace byte per cell (K3 reads one cell-off
-// byte and, with SS, four SS bytes): ~1-6 B/cell against 3.35 TB/s, so
+// byte and, with SS, four SS bytes; K6's dense form reads four SS
+// bytes): ~1-6 B/cell against 3.35 TB/s, so
 // the work is operations-bound, not bytes-bound.
 //
 // What the simple design leaves on the table.  One thread per template
@@ -64,6 +74,9 @@ constexpr int STOP = 0, MM = 2, GD = 3, IM = 4, DG = 5, MI = 6;
 constexpr int ROWS = 8;      // query rows per strip, register-resident
 constexpr int THREADS = 32;  // templates per block: spread over all SMs
 constexpr float NEG = -FLT_MAX;
+// K6's SS term: none, dense [Lq+1][Lt+1][B], or lut[qidx[i-1] + tidx[j-1]]
+constexpr int SS_NONE = 0, SS_DENSE = 1, SS_LUT = 2;
+constexpr int SS_LUT_MAX = 4 * 11 * 4 * 11;  // S33: NSSPRED x MAXCF squared
 
 __device__ __forceinline__ float fmax_(float a, float b) {
   return a > b ? a : b;
@@ -110,13 +123,17 @@ __device__ __forceinline__ float log2_quartic(float x, float sh) {
                    __fadd_rn(y0, sh));
 }
 
-// Stage the query rows i0..i0+ROWS-1 (profile) and i0-1..i0+ROWS-1
-// (transitions) of a strip in shared memory.
+// Stage the query rows i0..i0+ROWS-1 (profile, and K6's SS table
+// offsets when qidx is given) and i0-1..i0+ROWS-1 (transitions) of a
+// strip in shared memory.
 __device__ __forceinline__ void load_strip(const float* __restrict__ qp,
                                            const float* __restrict__ qtr,
                                            int i0, int nr,
                                            float (*s_qp)[20],
-                                           float (*s_qtr)[7]) {
+                                           float (*s_qtr)[7],
+                                           const int* __restrict__ qidx =
+                                               nullptr,
+                                           int* s_qidx = nullptr) {
   __syncthreads();
   for (int k = threadIdx.x; k < ROWS * 20; k += blockDim.x) {
     const int r = k / 20, a = k % 20;
@@ -126,25 +143,41 @@ __device__ __forceinline__ void load_strip(const float* __restrict__ qp,
     const int r = k / 7, c = k % 7;
     s_qtr[r][c] = r <= nr ? qtr[(size_t)(i0 - 1 + r) * 7 + c] : 0.0f;
   }
+  if (qidx)
+    for (int r = threadIdx.x; r < ROWS; r += blockDim.x)
+      s_qidx[r] = r < nr ? qidx[i0 - 1 + r] : 0;
   __syncthreads();
 }
 
-// ------------------------------------------------------------------ K1 --
+// -------------------------------------------------------------- K1/K6 --
 // Best local score per template, egq = egt = 0: MM is 0 on row 0 and
 // column 0, the other states -FLT_MAX.  The arithmetic is K1's own
 // (viterbi_lanes.py:537-552): the five MM candidates are factored into
-// two max trees.
-template <bool FAST>
+// two max trees.  K6 (SS != SS_NONE, exact log2 only) adds the SS term
+// to Si after the log2 and the shift: ss [Lq+1][Lt+1][B] (SS_DENSE), or
+// lut[qidx[i-1] + tidx[(j-1)*B + b]] (SS_LUT).  Padded template columns
+// (zero profile, zero table offset) score like K1's: their -FLT_MAX
+// transitions keep them from extending a real path.
+template <bool FAST, int SS>
 __global__ void __launch_bounds__(THREADS)
 vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
                  const float* __restrict__ tp, const float* __restrict__ ttr,
                  int B, int Lq, int Lt, float sh,
+                 const float* __restrict__ ss, const float* __restrict__ lut,
+                 int n_lut, const int* __restrict__ qidx,
+                 const int* __restrict__ tidx,
                  float* __restrict__ scratch, float* __restrict__ out) {
+  static_assert(!(FAST && SS != SS_NONE), "K6 uses the exact log2");
   __shared__ float s_qp[ROWS][20];
   __shared__ float s_qtr[ROWS + 1][7];
+  __shared__ float s_lut[SS == SS_LUT ? SS_LUT_MAX : 1];
+  __shared__ int s_qidx[ROWS];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = b < B;
   const size_t SB = (size_t)B;
+  // the table is visible after the first strip's __syncthreads
+  if constexpr (SS == SS_LUT)
+    for (int k = threadIdx.x; k < n_lut; k += blockDim.x) s_lut[k] = lut[k];
   // scratch[(j*5 + s)*B + b]: state s of the row above the strip
   if (live) {
     for (int j = 0; j <= Lt; ++j) {
@@ -159,7 +192,8 @@ vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
   float best = NEG;
   for (int i0 = 1; i0 <= Lq; i0 += ROWS) {
     const int nr = min(ROWS, Lq - i0 + 1);
-    load_strip(qp, qtr, i0, nr, s_qp, s_qtr);
+    load_strip(qp, qtr, i0, nr, s_qp, s_qtr,
+               SS == SS_LUT ? qidx : nullptr, s_qidx);
     if (!live) continue;
     float cmm[ROWS], cgd[ROWS], cim[ROWS], cdg[ROWS], cmi[ROWS];
 #pragma unroll
@@ -181,6 +215,7 @@ vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
       const float ti2m = tr1[I2M * SB], tm2d = tr1[M2D * SB];
       const float td2d = tr1[D2D * SB];
       const float tm2i = tr0[M2I * SB], ti2i = tr0[I2I * SB];
+      const int tj = SS == SS_LUT ? tidx[(size_t)(j - 1) * SB + b] : 0;
       float* sc = scratch + (size_t)j * 5 * SB + b;
       float umm = sc[0], ugd = sc[SB], uim = sc[2 * SB], udg = sc[3 * SB],
             umi = sc[4 * SB];
@@ -194,8 +229,13 @@ vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
           const float qd2d = s_qtr[r][D2D];
           const float qm2i = s_qtr[r + 1][M2I], qi2i = s_qtr[r + 1][I2I];
           const float dot = dot20(s_qp[r], tcol);
-          const float si = FAST ? log2_quartic(dot, sh)
-                                : __fadd_rn(log2f4(dot), sh);
+          float si = FAST ? log2_quartic(dot, sh)
+                          : __fadd_rn(log2f4(dot), sh);
+          if constexpr (SS == SS_DENSE)
+            si = __fadd_rn(si, ss[((size_t)(i0 + r) * (Lt + 1) + j) * SB
+                                  + b]);
+          if constexpr (SS == SS_LUT)
+            si = __fadd_rn(si, s_lut[s_qidx[r] + tj]);
           float t_a = fmax_(dmm + qm2m, dim + qi2m);
           t_a = fmax_(t_a, ddg + qd2m) + tm2m;
           const float t_b = fmax_(dgd + td2m, dmi + ti2m) + qm2m;
@@ -365,6 +405,18 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
   }
 }
 
+template <bool FAST, int SS>
+int launch_score(dim3 grid, cudaStream_t stream, const float* qp,
+                 const float* qtr, const float* tp, const float* ttr, int B,
+                 int Lq, int Lt, float sh, const float* ss, const float* lut,
+                 int n_lut, const int* qidx, const int* tidx, float* scratch,
+                 float* out) {
+  vit_score_kernel<FAST, SS><<<grid, THREADS, 0, stream>>>(
+      qp, qtr, tp, ttr, B, Lq, Lt, sh, ss, lut, n_lut, qidx, tidx, scratch,
+      out);
+  return (int)cudaGetLastError();
+}
+
 template <bool HAS_CO, bool HAS_SS, bool LOCAL>
 int launch_bt(dim3 grid, cudaStream_t stream, const float* qp,
               const float* qtr, const float* tp, const float* ttr,
@@ -385,23 +437,31 @@ const char* hh_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1.  qp (Lq+2, 20), qtr (Lq+2, 7), tp [Lt+2][20][B], ttr [Lt+2][7][B],
-// scratch [Lt+1][5][B] f32, out (B,) f32.  sh = shift (exact) or
-// shift - 127 (fast).  Returns the cudaError_t of the launch.
+// K1 and K6.  qp (Lq+2, 20), qtr (Lq+2, 7), tp [Lt+2][20][B], ttr
+// [Lt+2][7][B], scratch [Lt+1][5][B] f32, out (B,) f32.  sh = shift
+// (exact) or shift - 127 (fast).  K6's SS term (exact only): ss
+// [Lq+1][Lt+1][B] f32, or lut (n_lut <= 1936) f32 with qidx (Lq,) i32
+// and tidx [Lt][B] i32 (0 <= qidx[i] + tidx[j][b] < n_lut, not
+// checked); both NULL for K1.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
 int hh_vit_score(const float* qp, const float* qtr, const float* tp,
                  const float* ttr, int B, int Lq, int Lt, float sh, int fast,
-                 float* scratch, float* out, void* stream) {
+                 const float* ss, const float* lut, int n_lut,
+                 const int* qidx, const int* tidx, float* scratch,
+                 float* out, void* stream) {
   if (B <= 0) return 0;
+  if ((fast && (ss || lut)) || (lut && (n_lut <= 0 || n_lut > SS_LUT_MAX)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((B + THREADS - 1) / THREADS);
   cudaStream_t s = (cudaStream_t)stream;
-  if (fast)
-    vit_score_kernel<true><<<grid, THREADS, 0, s>>>(qp, qtr, tp, ttr, B, Lq,
-                                                    Lt, sh, scratch, out);
-  else
-    vit_score_kernel<false><<<grid, THREADS, 0, s>>>(qp, qtr, tp, ttr, B,
-                                                     Lq, Lt, sh, scratch,
-                                                     out);
-  return (int)cudaGetLastError();
+#define HH_SCORE(F, S)                                                     \
+  return launch_score<F, S>(grid, s, qp, qtr, tp, ttr, B, Lq, Lt, sh, ss, \
+                            lut, n_lut, qidx, tidx, scratch, out)
+  if (fast) HH_SCORE(true, SS_NONE);
+  if (ss) HH_SCORE(false, SS_DENSE);
+  if (lut) HH_SCORE(false, SS_LUT);
+  HH_SCORE(false, SS_NONE);
+#undef HH_SCORE
 }
 
 // K2 (co = ss = NULL, local = 1) and K3.  t_L (B,) i32; co

@@ -1,4 +1,4 @@
-"""Template-lanes Viterbi kernels: K1 (score-only sweep) and K2
+"""Template-lanes Viterbi kernels: K1 and K6 (score-only sweeps) and K2
 (full-backtrace pass), CUDA C++ in ``csrc/viterbi.cu``.
 
 Both map one TEMPLATE to one GPU thread, the way the reference maps
@@ -22,6 +22,16 @@ mantissa correction (|err| <= 0.000146 bit/cell; ranking only, the
 survivors are rescored exactly), ``"exact"`` the ``log2f4`` cubic.  The
 dot is f32 in the reference's SSE summation order — the TPU kernel's
 bf16 MXU operands have no counterpart here.
+
+K6 ``viterbi_score_lanes`` replaces the Pallas kernel of the same name:
+the same sweep with ``Si = log2f4(dot) + shift + ss``, the secondary-
+structure term given densely (``ss_score`` (B, Lq+1, Lt+1)) or as a
+lookup table (``ss_lut`` flat, ``ss_qidx`` (Lq,), ``ss_tidx`` (B, Lt):
+ss(b, i, j) = lut[qidx[i-1] + tidx[b, j-1]]).  It is K1 ``exact`` with
+one more add per cell, in the same kernel (an SS-mode template
+parameter), so with no SS term it is K1 ``exact`` bit for bit.  Si is
+f32 only: the TPU kernel's bfloat16 Si stream saved HBM bandwidth on a
+machine where Si lived in HBM; here Si never leaves the registers.
 
 K2 ``viterbi_backtrace_lanes`` replaces
 hhsuite_tpu/ops/viterbi_lanes.py:viterbi_backtrace_lanes: the full local
@@ -53,7 +63,8 @@ def cuda_lib():
     lib, _info = cuda_library("viterbi")
     if not _BOUND.get(id(lib)):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, P]
+        lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, I, P,
+                                     P, P, P, P]
         lib.hh_vit_score.restype = I
         lib.hh_vit_bt.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, F, F,
                                   F, P, P, P, P, P, P]
@@ -102,12 +113,43 @@ def _fast_shift(shift) -> np.float32:
 
 # ------------------------------------------------------------------ K1 --
 
+def launch_score(qp, qtr, tp, ttr, sh, fast, what, ss=None, lut=None,
+                 qidx=None, tidxT=None):
+    """Launch the score-sweep kernel (K1; K6 with ``ss`` [Lq+1][Lt+1][B]
+    or ``lut`` with ``qidx`` and ``tidxT`` [Lt][B], all on the card).
+    ``sh`` is the shift the kernel adds (K1 fast: shift - 127)."""
+    dev = _require_cuda(tp, ttr)
+    lib = cuda_lib()
+    f32 = torch.float32
+    Lq = qp.shape[0] - 2
+    B, Lt2, _ = tp.shape
+    Lt = Lt2 - 2
+    if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7):
+        raise ValueError(f"{what}: inconsistent shapes")
+    qp_c = qp.to(dev, f32).contiguous()
+    qtr_c = qtr.to(dev, f32).contiguous()
+    tpT = _lanes_last(tp, f32)
+    ttrT = _lanes_last(ttr, f32)
+    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
+    out = torch.empty(B, dtype=f32, device=dev)
+    n_lut = 0 if lut is None else int(lut.numel())
+    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT), B,
+                          Lq, Lt, float(np.float32(sh)), int(fast), _ptr(ss),
+                          _ptr(lut), n_lut, _ptr(qidx), _ptr(tidxT),
+                          _ptr(scratch), _ptr(out), _stream(dev))
+    _check(lib, rc, what)
+    return out
+
+
 def viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
-                              si_mode="exact"):
-    """Plain PyTorch version of K1 (any device): an anti-diagonal sweep
-    evaluating each cell with K1's own arithmetic — the five MM
+                              si_mode="exact", ss_score=None, ss_lut=None,
+                              ss_qidx=None, ss_tidx=None):
+    """Plain PyTorch version of K1 and K6 (any device): an anti-diagonal
+    sweep evaluating each cell with K1's own arithmetic — the five MM
     candidates factored into two max trees (the TPU kernel's
-    viterbi_lanes.py:537-552), MM boundary 0 on row 0 and column 0."""
+    viterbi_lanes.py:537-552), MM boundary 0 on row 0 and column 0.
+    K6's SS term (dense ``ss_score`` or the ``ss_lut`` form) is added to
+    Si after the log2 and the shift, as the kernel adds it."""
     dev = tp.device
     f32 = torch.float32
     qp = qp.to(dev, f32)
@@ -135,6 +177,12 @@ def viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
     qm2i_0 = qtr[ii, M2I][None]
     qi2i_0 = qtr[ii, I2I][None]
     qrow = qp[:Wi]
+    if ss_lut is not None:
+        # row 0 / column 0 offsets are never read (off the grid)
+        lut = ss_lut.to(dev, f32)
+        qi = torch.cat([ss_qidx.new_zeros(1), ss_qidx]).to(dev, torch.int64)
+        ti = torch.cat([ss_tidx.new_zeros((B, 1)), ss_tidx],
+                       dim=1).to(dev, torch.int64)
 
     def boundary(d):
         j = d - ii
@@ -147,8 +195,12 @@ def viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
     dg2 = mi2 = gd2 = imc2 = negrow
     best = torch.full((B,), NEG, dtype=f32, device=dev)
     for d in range(2, Lq + Lt + 1):
-        _ii, _jj, on, jc, jm1 = _diag_index(d, Wi, Lt, dev)
+        _ii, jj, on, jc, jm1 = _diag_index(d, Wi, Lt, dev)
         si = diag_si(qrow, tp, jc, sh, exact=exact, sh_fast=sh_fast)
+        if ss_score is not None:
+            si = si + ss_score[:, ii, jj.clamp(0, Lt)].to(f32)
+        elif ss_lut is not None:
+            si = si + lut[qi[ii][None] + ti[:, jj.clamp(0, Lt)]]
         tm2m1 = ttr[:, jm1, M2M]
         td2m1 = ttr[:, jm1, D2M]
         ti2m1 = ttr[:, jm1, I2M]
@@ -194,31 +246,75 @@ def viterbi_score_lanes_fused(qp, qtr, tp, ttr, t_L, shift,
     if tp.device.type == "cpu":
         return viterbi_score_lanes_plain(qp, qtr, tp, ttr, t_L, shift,
                                          si_mode=si_mode)
-    dev = _require_cuda(tp, ttr)
-    lib = cuda_lib()
-    f32 = torch.float32
-    Lq = qp.shape[0] - 2
-    B, Lt2, _ = tp.shape
-    Lt = Lt2 - 2
-    if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7):
-        raise ValueError("K1: inconsistent shapes")
-    qp_c = qp.to(dev, f32).contiguous()
-    qtr_c = qtr.to(dev, f32).contiguous()
-    tpT = _lanes_last(tp, f32)
-    ttrT = _lanes_last(ttr, f32)
-    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
-    out = torch.empty(B, dtype=f32, device=dev)
     fast = si_mode == "fast"
-    sh = float(_fast_shift(shift) if fast else np.float32(shift))
-    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT), B,
-                          Lq, Lt, sh, int(fast), _ptr(scratch), _ptr(out),
-                          _stream(dev))
-    _check(lib, rc, "K1 viterbi_score_lanes_fused")
+    sh = _fast_shift(shift) if fast else shift
+    out = launch_score(qp, qtr, tp, ttr, sh, fast,
+                       "K1 viterbi_score_lanes_fused")
     viterbi_score_lanes_fused.launches += 1
     return out
 
 
 viterbi_score_lanes_fused.launches = 0
+
+
+# ------------------------------------------------------------------ K6 --
+
+# the largest SS table: S33, NSSPRED x MAXCF x NSSPRED x MAXCF floats
+# (csrc/viterbi.cu keeps it in shared memory)
+SS_LUT_MAX = 4 * 11 * 4 * 11
+
+
+def viterbi_score_lanes(qp, qtr, tp, ttr, t_L, shift, ss_score=None,
+                        ss_lut=None, ss_qidx=None, ss_tidx=None,
+                        si_dtype="float32"):
+    """K6: (B,) f32 best local score per template with an optional SS
+    term — dense ``ss_score`` (B, Lq+1, Lt+1) f32, or ``ss_lut`` (n,) f32
+    with ``ss_qidx`` (Lq,) and ``ss_tidx`` (B, Lt) int offsets into it
+    (0 <= qidx + tidx < n, as ``build_ss_lut`` makes them; the kernel
+    does not check, which would cost a device sync per launch).
+    Equals ``viterbi_batch_rows(local=True)`` scores up to K1's factored
+    max trees.  ``t_L`` is unused (padded columns carry -FLT_MAX
+    transitions), kept for the JAX signature."""
+    if si_dtype != "float32":
+        raise ValueError(
+            f"K6 computes Si in float32 only, not {si_dtype}: the TPU "
+            "kernel's bfloat16 Si stream halved its HBM traffic, but here "
+            "Si is computed in registers and never stored")
+    if ss_score is not None and ss_lut is not None:
+        raise ValueError("K6: pass ss_score or ss_lut, not both")
+    if ss_lut is not None and (ss_qidx is None or ss_tidx is None):
+        raise ValueError("K6: ss_lut needs ss_qidx and ss_tidx")
+    if tp.device.type == "cpu":
+        return viterbi_score_lanes_plain(
+            qp, qtr, tp, ttr, t_L, shift, si_mode="exact",
+            ss_score=ss_score, ss_lut=ss_lut, ss_qidx=ss_qidx,
+            ss_tidx=ss_tidx)
+    dev = _require_cuda(tp, ttr)
+    f32 = torch.float32
+    Lq = qp.shape[0] - 2
+    B, Lt = tp.shape[0], tp.shape[1] - 2
+    kw = {}
+    if ss_score is not None:
+        if tuple(ss_score.shape) != (B, Lq + 1, Lt + 1):
+            raise ValueError(f"K6: ss_score shape {tuple(ss_score.shape)} "
+                             f"!= {(B, Lq + 1, Lt + 1)}")
+        kw["ss"] = _lanes_last(ss_score.to(dev), f32)
+    elif ss_lut is not None:
+        if not 0 < ss_lut.numel() <= SS_LUT_MAX:
+            raise ValueError(f"K6: ss_lut has {ss_lut.numel()} entries "
+                             f"(1..{SS_LUT_MAX})")
+        if tuple(ss_qidx.shape) != (Lq,) or tuple(ss_tidx.shape) != (B, Lt):
+            raise ValueError("K6: ss_qidx must be (Lq,) and ss_tidx (B, Lt)")
+        kw = dict(lut=ss_lut.to(dev, f32).contiguous(),
+                  qidx=ss_qidx.to(dev, torch.int32).contiguous(),
+                  tidxT=_lanes_last(ss_tidx.to(dev), torch.int32))
+    out = launch_score(qp, qtr, tp, ttr, shift, False,
+                       "K6 viterbi_score_lanes", **kw)
+    viterbi_score_lanes.launches += 1
+    return out
+
+
+viterbi_score_lanes.launches = 0
 
 
 # ------------------------------------------------------------------ K2 --

@@ -4,7 +4,10 @@
   NVTX range as well when a card is in use) around the search funnel's
   stages, so host phases and kernels line up in one timeline.
 * stage timers — ``enable_stage_timers()`` accumulates wall time per
-  annotated stage (and per ``stage_add`` call) into a dict.
+  annotated stage (and per ``stage_add`` call) into a dict.  The search
+  also counts two events there: ``funnel_blocks`` (blocks the score
+  sweep filtered) and ``funnel_dropped`` (searches whose funnel switched
+  itself off after a block that kept >= 90% of its templates).
 """
 
 from __future__ import annotations

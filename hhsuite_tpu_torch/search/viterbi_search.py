@@ -11,14 +11,16 @@ exclusion (par.altali, src/hhviterbirunner.cpp:104-194) builds its
 cell-off masks on the device from band intervals.
 
 Kernels on this path (``ops/``): K1 ``viterbi_score_lanes_fused`` (the
-funnel's score-only sweep), K2 ``viterbi_backtrace_lanes`` (the hot
-backtrace pass) and K3 ``viterbi_batch_rows`` (altali passes, SS in the
-DP, global mode, long queries).  On the CPU every wrapper runs its plain
+funnel's score-only sweep), K6 ``viterbi_score_lanes`` (the sweep when
+secondary structure enters the DP), K2 ``viterbi_backtrace_lanes`` (the
+hot backtrace pass) and K3 ``viterbi_batch_rows`` (altali passes, SS in
+the DP, global mode, long queries).  On the CPU every wrapper runs its plain
 PyTorch version, so one code path serves both devices.
 """
 
 from __future__ import annotations
 
+import os
 import time as _time
 from typing import Dict, List, Optional, Tuple
 
@@ -26,12 +28,13 @@ import numpy as np
 import torch
 
 from .. import fastmath as fm
-from ..constants import Parameters
+from ..constants import MAXCF, NDSSP, NSSPRED, Parameters
 from ..core.hit import Hit
 from ..core.hmm import HMM
 from ..device import resolve_device
 from ..ops import viterbi as V
 from ..ops.viterbi_lanes import (viterbi_backtrace_lanes,
+                                 viterbi_score_lanes,
                                  viterbi_score_lanes_fused)
 from ..ops.viterbi_rows import viterbi_batch_rows
 from ..profiling import annotate, stage_add
@@ -144,6 +147,84 @@ def build_ss_score(q: HMM, t: HMM, ss_hmm_mode: int, ssw: float,
     return out
 
 
+def build_ss_lut(q: HMM, templates: List[HMM], ss_hmm_mode: int,
+                 ssw: float, S73, S37, S33, Lt_max: int):
+    """Device-side form of Viterbi::ScoreSS (hhviterbi.h:193-211):
+    a flat ssw-weighted table plus per-query-row / per-template-column
+    offsets such that ss(b,i,j) = lut[qidx[i] + tidx[b,j]].
+
+    The HMM's SS arrays are int8; the offsets are computed in int32 (the
+    query offsets reach 43 * 44 = 1892, which int8 arithmetic wraps)."""
+    Lq = q.L
+    qi = np.arange(1, Lq + 1)
+    i32 = np.int32
+    tidx = np.zeros((len(templates), Lt_max), dtype=i32)
+    if ss_hmm_mode == PRED_DSSP:
+        lut = (ssw * S37).reshape(-1).astype(np.float32)
+        qidx = ((q.ss_pred[qi].astype(i32) * MAXCF + q.ss_conf[qi])
+                * NDSSP)
+        for b, t in enumerate(templates):
+            tidx[b, : t.L] = t.ss_dssp[1: t.L + 1]
+    elif ss_hmm_mode == DSSP_PRED:
+        lut = (ssw * S73).reshape(-1).astype(np.float32)
+        qidx = q.ss_dssp[qi].astype(i32) * (NSSPRED * MAXCF)
+        for b, t in enumerate(templates):
+            tj = np.arange(1, t.L + 1)
+            tidx[b, : t.L] = t.ss_pred[tj].astype(i32) * MAXCF \
+                + t.ss_conf[tj]
+    else:  # PRED_PRED
+        lut = (ssw * S33).reshape(-1).astype(np.float32)
+        qidx = ((q.ss_pred[qi].astype(i32) * MAXCF + q.ss_conf[qi])
+                * (NSSPRED * MAXCF))
+        for b, t in enumerate(templates):
+            tj = np.arange(1, t.L + 1)
+            tidx[b, : t.L] = t.ss_pred[tj].astype(i32) * MAXCF \
+                + t.ss_conf[tj]
+    qidx = qidx.astype(i32)
+    # K6 and K3's gather index the table without a bound on the card:
+    # check the offsets here, on the host, where it costs no sync
+    if (qidx.min() < 0 or tidx.min(initial=0) < 0
+            or int(qidx.max()) + int(tidx.max(initial=0)) >= len(lut)):
+        raise ValueError("SS table offsets out of range")
+    return lut, qidx, tidx
+
+
+# elements per chunk of ss_score_device's index (int32: 64 MiB)
+_SS_GATHER_CHUNK = 1 << 24
+
+
+def ss_score_device(lut: np.ndarray, qidx: np.ndarray, tidx: np.ndarray,
+                    t_L: torch.Tensor) -> torch.Tensor:
+    """The dense SS score matrix of a batch gathered on ``t_L``'s device
+    from the LUT form (:func:`build_ss_lut`, ``tidx`` (B, Lt)): a
+    (B, Lq+1, Lt+1) f32 view of lanes-last storage, the layout K3 reads.
+    ss[b, i, j] = lut[qidx[i-1] + tidx[b, j-1]] for 1 <= i and
+    1 <= j <= t_L[b], else 0 — the f32 values :func:`build_ss_score`
+    writes, so K3 sees the same matrix as from the host fill.
+
+    Row 0 and the columns outside 1..t_L[b] get offsets >= n, clamped to
+    n, a zero appended to the table; the index is built a few rows at a
+    time, so the device holds the result and one chunk beside it."""
+    dev = t_L.device
+    B, Lt = tidx.shape
+    Lq = len(qidx)
+    n = len(lut)
+    lut_d = _host_to(np.append(lut, np.float32(0.0)), dev)
+    qi = _host_to(np.concatenate([[n], qidx]).astype(np.int32), dev)
+    ti = torch.zeros((Lt + 1, B), dtype=torch.int32, device=dev)
+    ti[1:] = _host_to(tidx.T, dev)
+    jj = torch.arange(Lt + 1, device=dev)[:, None]
+    col_ok = (jj >= 1) & (jj <= t_L.to(dev)[None, :])          # (Lt+1, B)
+    ti.masked_fill_(~col_ok, n)
+    ss = torch.empty((Lq + 1, Lt + 1, B), dtype=torch.float32, device=dev)
+    rows = max(1, _SS_GATHER_CHUNK // ((Lt + 1) * B))
+    for r0 in range(0, Lq + 1, rows):
+        idx = (qi[r0: r0 + rows, None, None] + ti[None]).clamp_(max=n)
+        ss[r0: r0 + rows] = torch.index_select(
+            lut_d, 0, idx.view(-1)).view(idx.shape)
+    return ss.permute(2, 0, 1)
+
+
 def score_for_backtrace(q: HMM, t: HMM, align_score: float,
                         i_steps, j_steps, states, ss_hmm_mode: int,
                         ssw: float, ss_mode: int, corr: float,
@@ -253,8 +334,21 @@ def _funnel_ok(device: torch.device) -> bool:
 # the widest bucket); on the CPU, wide enough to amortise the plain
 # version's per-diagonal tensor ops
 BT_BATCH = {"cuda": 4096, "cpu": 256}
-# score-sweep lanes per K1 launch
+# score-sweep lanes per K1/K6 launch (the JAX package's SB: the SS mode
+# is decided per chunk, so both packages must cut the same chunks)
 SWEEP_BATCH = 8192
+
+
+def _lanes_impl() -> str:
+    """Which kernel sweeps a chunk with no SS term (HHSUITE_TPU_SI_MODE,
+    as in the JAX package): ``"fused"`` (default) K1 with the fast
+    quartic log2, ``"exact"`` K1 with log2f4, ``"split"`` K6 with no SS
+    term (bit-identical to ``"exact"`` here)."""
+    v = os.environ.get("HHSUITE_TPU_SI_MODE", "fused").strip().lower()
+    if v not in ("fused", "exact", "split"):
+        raise ValueError(f"HHSUITE_TPU_SI_MODE must be fused, exact or "
+                         f"split: {v!r}")
+    return v
 
 
 class _PackDisabled:
@@ -406,8 +500,11 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
     alignments or realigned.  This mirrors the reference's display /
     realign caps (src/hhdecl.cpp:165-169); light hits lack the
     correlation-score term (src/hhviterbi.cpp:243-252), which only
-    affects hits far outside the reporting caps.  The funnel stays off
-    when SS enters the DP: its SS sweep (the TPU's K6) is not ported.
+    affects hits far outside the reporting caps.  When secondary
+    structure enters the DP (``ssm`` 2 and SS on both sides) the sweep
+    is K6 with the SS term; a light hit then carries the sweep score,
+    SS included, where a full hit's score has ``score_ss`` subtracted
+    (as in the JAX package).
     """
     dev = resolve_device(device if resident_pack is None
                          or resident_pack is PACK_DISABLED
@@ -577,12 +674,13 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
 
             ss_batch = None
             if ss_in_dp:
-                ss_np = np.zeros((Bp, Lq + 1, Lt_max + 1), dtype=np.float32)
-                for b, t in enumerate(batch):
-                    m = build_ss_score(q, t, ss_hmm_mode, par.ssw,
-                                       S73, S37, S33)
-                    ss_np[b, :, : t.L + 1] = m
-                ss_batch = _host_to(ss_np, dev)
+                # K3's dense SS input, gathered on the device from the
+                # LUT form (SS queries are never Lq-bucketed: Lq == q.L)
+                lut, qidx, tidx = build_ss_lut(q, batch, ss_hmm_mode,
+                                               par.ssw, S73, S37, S33,
+                                               Lt_max)
+                tidx = np.pad(tidx, ((0, Bp - len(batch)), (0, 0)))
+                ss_batch = ss_score_device(lut, qidx, tidx, t_L)
 
             with annotate("viterbi_backtrace_pass"):
                 if (bucket_lt is not None and cell_off is None
@@ -756,8 +854,10 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
             stage_add("host_hitbuild", _time.perf_counter() - _t_hb)
 
     def _lanes_scores(junk) -> np.ndarray:
-        """Score-only K1 sweep (``fast`` log2) over one junk; returns
-        the scores in junk order."""
+        """Score-only sweep over one junk, per chunk K6 with the SS LUT
+        when SS enters the DP, else the ``_lanes_impl`` kernel (K1
+        ``fast`` by default); returns the scores in junk order."""
+        impl = _lanes_impl()
         # chunking: plain SWEEP_BATCH slices, or (resident pack) per
         # length bucket so gathers draw from one bucket at a time;
         # `positions` maps each chunk back into the junk order
@@ -781,6 +881,7 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
             nb = len(batch)
             Bp = min(SWEEP_BATCH, 1 << max(0, nb - 1).bit_length())
             if bucket_lt is not None:
+                Lt_max = bucket_lt
                 tp, ttr, t_L = pack.gather(
                     bucket_lt, [pack_names[i] for i in idxs],
                     _pnul_lanes(idxs, Bp), Bp)
@@ -788,9 +889,27 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                 Lt_max = max(128, -(-max(t.L for t in batch) // 128) * 128)
                 tp, ttr, t_L = to_device_pack(
                     *pack_templates(batch, Lt_max, B=Bp), dev)
+            ss_hmm_mode = compute_ss_hmm_mode(q, batch) \
+                if par.ssm == 2 else NO_SS_INFORMATION
             with annotate("viterbi_lanes_sweep"):
-                sc = viterbi_score_lanes_fused(qp_d, qtr_d, tp, ttr, t_L,
-                                               shift, si_mode="fast")
+                if ss_hmm_mode != NO_SS_INFORMATION or impl == "split":
+                    ss = {}
+                    if ss_hmm_mode != NO_SS_INFORMATION:
+                        # SS queries are never Lq-bucketed (qp_d is q's
+                        # own profile)
+                        lut, qidx, tidx = build_ss_lut(
+                            q, batch, ss_hmm_mode, par.ssw, S73, S37, S33,
+                            Lt_max)
+                        tidx = np.pad(tidx, ((0, Bp - nb), (0, 0)))
+                        ss = dict(ss_lut=_host_to(lut, dev),
+                                  ss_qidx=_host_to(qidx, dev),
+                                  ss_tidx=_host_to(tidx, dev))
+                    sc = viterbi_score_lanes(qp_d, qtr_d, tp, ttr, t_L,
+                                             shift, **ss)
+                else:
+                    sc = viterbi_score_lanes_fused(
+                        qp_d, qtr_d, tp, ttr, t_L, shift,
+                        si_mode="fast" if impl == "fused" else "exact")
                 scores[np.asarray(positions, dtype=np.int64)] = \
                     sc[:nb].cpu().numpy()
         return scores
@@ -818,12 +937,10 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
         return hit
 
     K_cap = 2 * max(par.Z, par.B, par.realign_max, par.z, par.b)
-    ss_may_enter_dp = par.ssm == 2 and (q.nss_pred >= 0 or q.nss_dssp >= 0)
     use_funnel = (allow_funnel and _funnel_ok(dev) and par.egq == 0.0
                   and par.egt == 0.0
                   and bool(par.loc) and q.L <= 512
                   and not (par.exclstr or par.template_exclstr)
-                  and not ss_may_enter_dp
                   and len(templates) > K_cap)
     funnel_scores: List[float] = []   # all pass-1 scores so far (global)
     funnel_on = True                  # dropped when a block keeps >=90%
@@ -862,12 +979,14 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                     if not keep[k]:
                         hits.append(_make_light_hit(junk[k],
                                                     float(scores[k])))
+                stage_add("funnel_blocks", 1)
                 if len(full) >= 0.9 * len(junk):
                     # funnel-degenerate workload (near-identical
                     # templates score above the keep thresholds): the
                     # sweep filters nothing, so drop it for the
                     # remaining blocks — identical output
                     funnel_on = False
+                    stage_add("funnel_dropped", 1)
             else:
                 _run_junk(junk)
             if alignment == 0 and par.early_stopping_filter:

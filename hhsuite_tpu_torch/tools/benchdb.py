@@ -241,3 +241,124 @@ def build_decoy_db(base: str, family_base: str, n_decoys: int,
     with open(done_marker, "w") as f:
         f.write(f"{n}\n")
     return n
+
+
+# Chou & Fasman (1978) conformational parameters x 100: helix P(a),
+# strand P(b) per residue, in the order of AA
+_CF_HELIX = np.array([142, 70, 101, 151, 113, 57, 100, 108, 114, 121, 145,
+                      67, 57, 111, 98, 77, 83, 106, 108, 69], np.float64)
+_CF_STRAND = np.array([83, 119, 54, 37, 138, 75, 87, 160, 74, 130, 105, 89,
+                       55, 110, 93, 75, 119, 170, 137, 147], np.float64)
+_SS_CODE = np.frombuffer(b"CHE", np.uint8)
+
+
+def _window_mean(x: np.ndarray, w: int) -> np.ndarray:
+    """Centered moving average over ``w`` residues, shrunk at the ends."""
+    k = np.ones(w)
+    return np.convolve(x, k, "same") / np.convolve(np.ones_like(x), k, "same")
+
+
+def _drop_short_runs(ss: np.ndarray, state: int, min_len: int) -> None:
+    """Turn runs of ``state`` shorter than ``min_len`` into coil (0)."""
+    is_s = np.concatenate([[False], ss == state, [False]])
+    edges = np.flatnonzero(np.diff(is_s.astype(np.int8)))
+    for a, b in zip(edges[::2], edges[1::2]):
+        if b - a < min_len:
+            ss[a:b] = 0
+
+
+# predict_ss thresholds: window-mean helix propensity, strand propensity,
+# and the strand mean's handicap against the helix mean (set so that
+# sequences of uniform residue composition come out ~37% H, ~21% E,
+# ~42% C, near PSIPRED's composition on globular proteins)
+_SS_HELIX_MIN, _SS_STRAND_MIN, _SS_STRAND_HANDICAP = 97.0, 112.0, 10.0
+
+
+def predict_ss(seq: str) -> Tuple[str, str]:
+    """A deterministic Chou-Fasman-style secondary-structure prediction
+    of one sequence: (ss_pred over {H, E, C}, ss_conf digits 0-9).
+
+    Helix and strand propensities (Chou & Fasman 1974/1978) are averaged
+    over windows of 6 and 5 residues (their nucleation windows).  A
+    residue is H where the helix mean is at least 97 and above the
+    strand mean less 10, E where the strand mean is at least 112 and
+    above the helix mean plus 10, else C; helices shorter than 4 and
+    strands shorter than 3 residues become coil.  The confidence digit
+    grows with the winning state's smallest margin over its rules (for
+    coil: how far both means are below their thresholds).  No random
+    generator is used, so homologues share SS where their residues
+    agree."""
+    idx = np.frombuffer(seq.encode(), np.uint8)
+    aa = np.frombuffer("".join(AA).encode(), np.uint8)
+    lut = np.full(256, -1, np.int64)
+    lut[aa] = np.arange(20)
+    k = lut[idx]
+    known = k >= 0
+    pa = np.where(known, _CF_HELIX[np.maximum(k, 0)], 100.0)
+    pb = np.where(known, _CF_STRAND[np.maximum(k, 0)], 100.0)
+    ha = _window_mean(pa, 6)
+    hb = _window_mean(pb, 5) - _SS_STRAND_HANDICAP
+    hb_min = _SS_STRAND_MIN - _SS_STRAND_HANDICAP
+    ss = np.zeros(len(idx), np.int8)                 # 0 C, 1 H, 2 E
+    ss[(ha >= _SS_HELIX_MIN) & (ha > hb)] = 1
+    ss[(hb >= hb_min) & (hb > ha)] = 2
+    _drop_short_runs(ss, 1, 4)
+    _drop_short_runs(ss, 2, 3)
+    margin = np.where(
+        ss == 1, np.minimum(ha - _SS_HELIX_MIN, ha - hb),
+        np.where(ss == 2, np.minimum(hb - hb_min, hb - ha),
+                 np.minimum(_SS_HELIX_MIN - ha, hb_min - hb)))
+    conf = np.clip(np.round(np.maximum(margin, 0.0) / 2.5) + 1, 0, 9)
+    return (_SS_CODE[ss].tobytes().decode(),
+            (conf.astype(np.uint8) + ord("0")).tobytes().decode())
+
+
+def _with_ss(a3m: str) -> str:
+    """Prefix a single-sequence a3m entry with its predicted SS rows."""
+    header, seq = a3m.split("\n")[:2]
+    pred, conf = predict_ss(seq)
+    return (f">ss_pred Chou-Fasman predicted secondary structure\n{pred}\n"
+            f">ss_conf Chou-Fasman confidence values\n{conf}\n"
+            f"{header}\n{seq}\n")
+
+
+def build_ss_db(base: str, family_base: str, query_a3m: str) -> str:
+    """Build <base>_{a3m,cs219}.ff{data,index} from the benchmark
+    database ``family_base`` with every entry annotated with
+    ``>ss_pred``/``>ss_conf`` rows (:func:`predict_ss`) before its
+    sequence; returns ``query_a3m`` (the family's query) annotated the
+    same way.  The cs219 file is the family's, byte for byte (the
+    sequences are the same).  There is no hhm file: the search builds
+    each HMM from its a3m, SS rows included."""
+    import shutil
+
+    from ..io.ffindex import FFindexDatabase, FFindexWriter
+
+    query = _with_ss(query_a3m)
+    done_marker = base + ".done"
+    if os.path.exists(done_marker):
+        return query
+    fam = FFindexDatabase(f"{family_base}_a3m.ffdata",
+                          f"{family_base}_a3m.ffindex")
+    with FFindexWriter(base + "_a3m.ffdata", base + "_a3m.ffindex") as w:
+        for e in fam.entries:
+            w.add(e.name, _with_ss(fam.read_text(e)).encode())
+    for ext in (".ffdata", ".ffindex"):
+        shutil.copyfile(f"{family_base}_cs219{ext}", f"{base}_cs219{ext}")
+    with open(done_marker, "w") as f:
+        f.write("ok\n")
+    return query
+
+
+def ss_composition(base: str) -> dict:
+    """Fractions of H, E and C over every ``ss_pred`` row of <base>_a3m."""
+    from ..io.ffindex import FFindexDatabase
+
+    db = FFindexDatabase(f"{base}_a3m.ffdata", f"{base}_a3m.ffindex")
+    counts = np.zeros(256, np.int64)
+    for e in db.entries:
+        pred = db.read_text(e).split("\n")[1]    # the row after >ss_pred
+        counts += np.bincount(np.frombuffer(pred.encode(), np.uint8),
+                              minlength=256)
+    n = max(int(counts.sum()), 1)
+    return {c: float(counts[ord(c)]) / n for c in "HEC"}

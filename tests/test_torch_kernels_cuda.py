@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-the Viterbi kernels (K1, K2, K3) bit for bit, the prefilter kernels (K4,
+the Viterbi kernels (K1, K2, K3, K6) bit for bit, the prefilter kernels (K4,
 K5) as integers — phase 1 of ``chip_smoke.py``, at small shapes, at the
 prefilter's path shape and at long queries.  Needs a CUDA card;
 elsewhere every test skips.  On a machine with a card:
@@ -13,6 +13,7 @@ import torch
 from hhsuite_tpu_torch.ops import prefilter as PK
 from hhsuite_tpu_torch.ops import viterbi as TV
 from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
+                                                 viterbi_score_lanes,
                                                  viterbi_score_lanes_fused,
                                                  viterbi_score_lanes_plain)
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
@@ -21,6 +22,7 @@ from hhsuite_tpu_torch.search.prefilter import to_device_cs219
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
+from test_torch_viterbi_kernels import _ss_lut_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -114,6 +116,35 @@ def test_kernels_take_exclusion_masks_in_place(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _same(a, b)
+
+
+# chip_smoke's K6 edge shapes (Lq, Lt, B): short queries (one partial
+# ROWS strip, one full strip plus one row, two strips plus one row), one
+# template, one template column; the LUT offsets reach both ends of the
+# table in every case
+K6_SHAPES = [(1, 40, 33), (9, 40, 33), (17, 50, 65), (37, 29, 1),
+             (25, 1, 40)]
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+def test_k6_kernel_bit_identical(cuda, shape):
+    qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 6)
+    lut, qidx, tidx, dense = (torch.from_numpy(x).to(cuda)
+                              for x in _ss_lut_inputs(*shape, seed=7))
+    n = viterbi_score_lanes.launches
+    got = viterbi_score_lanes(qp, qtr, tp, ttr, tl, -0.03, ss_lut=lut,
+                              ss_qidx=qidx, ss_tidx=tidx)
+    assert viterbi_score_lanes.launches == n + 1
+    want = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tl, -0.03,
+                                     ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+    got_dense = viterbi_score_lanes(qp, qtr, tp, ttr, tl, -0.03,
+                                    ss_score=dense)
+    got_none = viterbi_score_lanes(qp, qtr, tp, ttr, tl, -0.03)
+    k1_exact = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tl, -0.03,
+                                         si_mode="exact")
+    torch.cuda.synchronize()
+    assert _same(got, want) and _same(got_dense, got)
+    assert _same(got_none, k1_exact)
 
 
 PF_STAGES = {"K4": (PK.ungapped_scores, PK.ungapped_scores_plain,

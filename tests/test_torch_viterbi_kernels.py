@@ -1,4 +1,4 @@
-"""Plain versions of the port's three Viterbi kernels (K1, K2, K3) against
+"""Plain versions of the port's Viterbi kernels (K1, K2, K3, K6) against
 the JAX package on the same numpy inputs.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; the CUDA
@@ -14,7 +14,12 @@ kernels are held against those plain versions bit for bit on the card
   to bf16 (tests/test_viterbi_lanes_fused.py:31-47);
 * K3 vs JAX ``viterbi_batch_rows(interpret=True)``: identical backtrace
   bytes and end cells, scores within rtol 1e-6 / atol 1e-4 (the JAX
-  kernel's tree scans drift by ~1 ulp, viterbi_rows.py:34-38).
+  kernel's tree scans drift by ~1 ulp, viterbi_rows.py:34-38);
+* K6 vs JAX ``viterbi_score_lanes(si_dtype="float32", interpret=True)``,
+  dense and LUT SS: rtol 2e-6 / atol 1e-4, the profile dot's summation
+  order (as tests/test_viterbi_lanes.py holds the JAX kernel to its
+  scan reference).  Within the port, K6's LUT form equals its dense form
+  and K6 without SS equals K1 ``exact``, bit for bit.
 """
 
 import numpy as np
@@ -22,10 +27,12 @@ import pytest
 import torch
 
 from hhsuite_tpu.ops import viterbi as JV
+from hhsuite_tpu.ops.viterbi_lanes import viterbi_score_lanes as jax_k6
 from hhsuite_tpu.ops.viterbi_lanes import viterbi_score_lanes_fused as jax_k1
 from hhsuite_tpu.ops.viterbi_rows import viterbi_batch_rows as jax_k3
 from hhsuite_tpu_torch.ops import viterbi as TV
 from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
+                                                 viterbi_score_lanes,
                                                  viterbi_score_lanes_fused)
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
@@ -157,3 +164,71 @@ def test_wrappers_reject_other_devices():
         viterbi_score_lanes_fused(*meta, -0.03)
     with pytest.raises(ValueError):
         viterbi_score_lanes_fused(*args, -0.03, si_mode="split")
+
+
+def _ss_lut_inputs(Lq, Lt, B, seed):
+    """An S33-shaped table (4 x 11 x 4 x 11 floats) and offsets spanning
+    it, the form build_ss_lut gives; plus the dense matrix they define
+    (row 0 and column 0 zero)."""
+    rng = np.random.default_rng(seed)
+    lut = (rng.random(1936) * 0.6 - 0.3).astype(np.float32)
+    qidx = (rng.integers(0, 44, Lq) * 44).astype(np.int32)
+    tidx = rng.integers(0, 44, (B, Lt)).astype(np.int32)
+    qidx[0], tidx[0, 0] = 0, 0
+    qidx[-1], tidx[-1, -1] = 43 * 44, 43        # both ends of the table
+    dense = np.zeros((B, Lq + 1, Lt + 1), np.float32)
+    dense[:, 1:, 1:] = lut[qidx[None, :, None] + tidx[:, None, :]]
+    return lut, qidx, tidx, dense
+
+
+@pytest.mark.parametrize("shape", [(37, 29, 4), (21, 30, 3)])
+@pytest.mark.parametrize("form", ["dense", "lut"])
+def test_k6_plain_matches_jax_interpret(shape, form):
+    qp, qtr, tp, ttr, t_L, _co, _ss = make_inputs(*shape, seed=11)
+    lut, qidx, tidx, dense = _ss_lut_inputs(*shape, seed=12)
+    if form == "dense":
+        jkw = dict(ss_score=dense)
+        tkw = dict(ss_score=torch.from_numpy(dense))
+    else:
+        jkw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+        tkw = dict(ss_lut=torch.from_numpy(lut),
+                   ss_qidx=torch.from_numpy(qidx),
+                   ss_tidx=torch.from_numpy(tidx))
+    want = np.asarray(jax_k6(qp, qtr, tp, ttr, t_L, np.float32(-0.03),
+                             si_dtype="float32", interpret=True, **jkw))
+    before = viterbi_score_lanes.launches
+    got = viterbi_score_lanes(*_args(qp, qtr, tp, ttr, t_L), -0.03, **tkw)
+    assert viterbi_score_lanes.launches == before      # plain on the CPU
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=1e-4)
+
+
+def test_k6_lut_equals_dense_and_no_ss_equals_k1_exact():
+    shape = (40, 23, 5)
+    qp, qtr, tp, ttr, t_L, _co, _ss = make_inputs(*shape, seed=13)
+    lut, qidx, tidx, dense = _ss_lut_inputs(*shape, seed=14)
+    args = _args(qp, qtr, tp, ttr, t_L)
+    s_lut = viterbi_score_lanes(*args, -0.03, ss_lut=torch.from_numpy(lut),
+                                ss_qidx=torch.from_numpy(qidx),
+                                ss_tidx=torch.from_numpy(tidx))
+    s_dense = viterbi_score_lanes(*args, -0.03,
+                                  ss_score=torch.from_numpy(dense))
+    np.testing.assert_array_equal(s_lut.numpy().view(np.int32),
+                                  s_dense.numpy().view(np.int32))
+    s_none = viterbi_score_lanes(*args, -0.03)
+    s_k1 = viterbi_score_lanes_fused(*args, -0.03, si_mode="exact")
+    np.testing.assert_array_equal(s_none.numpy().view(np.int32),
+                                  s_k1.numpy().view(np.int32))
+    assert not np.array_equal(s_lut.numpy(), s_none.numpy())
+
+
+def test_k6_rejects_bfloat16_si_and_mixed_forms():
+    qp, qtr, tp, ttr, t_L, _co, ss = make_inputs(25, 21, 3, seed=15)
+    args = _t(qp, qtr, tp, ttr, t_L)
+    with pytest.raises(ValueError, match="float32"):
+        viterbi_score_lanes(*args, -0.03, si_dtype="bfloat16")
+    lut = torch.zeros(1936)
+    with pytest.raises(ValueError):
+        viterbi_score_lanes(*args, -0.03, ss_score=torch.from_numpy(ss),
+                            ss_lut=lut)
+    with pytest.raises(ValueError):
+        viterbi_score_lanes(*args, -0.03, ss_lut=lut)
