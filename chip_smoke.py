@@ -13,13 +13,18 @@ and no result line:
    ``chip_smoke_cache/``: the 512-, 128- and 8192-template families,
    two with decoys (128 + 16,384; 8192 + 1,040,384 = 2^20 entries) and
    two with secondary structure (``tools/benchdb.py:build_ss_db``: the
-   128 and 8192 families with ``>ss_pred``/``>ss_conf`` rows);
+   128 and 8192 families with ``>ss_pred``/``>ss_conf`` rows); ptxas's
+   registers and spill bytes of each of the eight ``vit_bt_kernel``
+   (K2/K3) instantiations;
 1. each kernel against its plain PyTorch version on the card at the
-   search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3,
-   K6 with the SS lookup table) bit-identical, K6's dense form and its
-   LUT form bit-identical, K6 without SS equal to K1 exact, K6 at edge
-   shapes; the prefilter kernels (K4, K5) int-identical at the path's
-   shape and at edge shapes; times from CUDA events;
+   search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
+   with altali masks, global, and with the SS table, K6 with the SS
+   lookup table) bit-identical, with K2/K3's launch geometry (group
+   width G, rows a lane R); K2 and K3 at the wavefront's edge shapes;
+   K6's dense form and its LUT form bit-identical, K6 without SS equal
+   to K1 exact, K6 at edge shapes; the prefilter kernels (K4, K5)
+   int-identical at the path's shape and at edge shapes; times from
+   CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
    the reference's (tests/fixtures); ``hhsearch`` on the golden SS
@@ -42,7 +47,8 @@ and no result line:
 6. ``hhsearch`` with default parameters (``-ssm 2``: SS in the DP) on the
    8192-template SS database with the family's SS-annotated query, cold
    and warm: as phase 4, with K1, K3 and K6 launched, and whether the
-   funnel switched itself off; a profiled warm query.
+   funnel switched itself off; a profiled warm query, with K3's device
+   time.
 
 The last lines are the card (``nvidia-smi``), one JSON object with the
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -64,9 +70,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, "chip_smoke_cache")
 FIX = os.path.join(REPO, "tests", "fixtures")
 
-# published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
-# cores, HBM3 bandwidth
-PEAK_F32 = 67e12
+# H100 SXM rates: f32 instructions outside the tensor cores, 132 SMs x
+# 128 lanes x 1.98 GHz boost clock (the data sheet's 67 TFLOP/s counts
+# an FMA as two operations; the Viterbi kernels are built with
+# -fmad=false, so every operation is one instruction), and HBM3
+# bandwidth (NVIDIA data sheet)
+PEAK_F32 = 132 * 128 * 1.98e9
 PEAK_BYTES = 3.35e12
 # f32 operations per DP cell, counted in csrc/viterbi.cu: the 20-term
 # dot (20 mul + 19 add), the log2 (fast quartic 12, exact cubic 10) and
@@ -199,6 +208,42 @@ def bound_ms(ops: float, nbytes: float, peak_ops: float = PEAK_F32):
                                  else "bytes")
 
 
+def ptxas_usage(log_text: str) -> dict:
+    """Registers and spill bytes per kernel instantiation from an
+    ``nvcc -Xptxas -v`` log: {mangled name: (registers, spill stores,
+    spill loads)}."""
+    import re
+
+    out, name, spill = {}, None, (0, 0)
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = (int(m.group(1)),) + spill
+            name = None
+    return out
+
+
+def bt_instantiations(usage: dict) -> dict:
+    """The vit_bt_kernel<HAS_CO, HAS_SS, LOCAL> entries of
+    :func:`ptxas_usage`, keyed "<co,ss,local>"."""
+    import re
+
+    out = {}
+    for name, u in usage.items():
+        m = re.search(r"vit_bt_kernelILb([01])ELb([01])ELb([01])E", name)
+        if m:
+            out["<%s,%s,%s>" % m.groups()] = u
+    return dict(sorted(out.items()))
+
+
 def bits_equal(a, b) -> bool:
     import torch
 
@@ -215,14 +260,15 @@ def max_abs(a, b) -> float:
 
 # ----------------------------------------------------------- phases ----
 
-def phase1_kernels(dev):
+def phase1_kernels(dev, bt_usage):
     """Kernel vs plain version at the path shapes; returns the per-kernel
-    records (without launch counts)."""
+    records (without launch counts).  ``bt_usage``: ptxas registers and
+    spills of each vit_bt_kernel instantiation."""
     import torch
 
     from hhsuite_tpu_torch.ops.viterbi_lanes import (
-        viterbi_backtrace_lanes, viterbi_score_lanes_fused,
-        viterbi_score_lanes_plain)
+        bt_geometry, cuda_lib, viterbi_backtrace_lanes,
+        viterbi_score_lanes_fused, viterbi_score_lanes_plain)
     from hhsuite_tpu_torch.ops.viterbi import viterbi_batch
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
@@ -293,14 +339,18 @@ def phase1_kernels(dev):
         needed = LQ * int(tL.sum())
         nbytes = extra_bytes + B * (LQ + 1) * (LT + 1) * u8b + B * 12
         bms, bby = bound_ms(needed * ops_cell, nbytes)
+        geo = bt_geometry(B, LQ, LT)
+        smem = cuda_lib().hh_bt_smem_bytes(geo.G, int("SS" in tag))
         log(f"phase1 {tag}: B={B} Lq={LQ} Lt={LT} {ms:.3f} ms "
             f"({LQ * LT * B / ms / 1e6:.1f} GCUPS, {launches} launches), "
-            f"plain {plain_ms:.1f} ms, bit-identical (score, i2, j2, bt)")
-        return ms, plain_ms, err, bms, bby
+            f"plain {plain_ms:.1f} ms, bit-identical (score, i2, j2, bt); "
+            f"G={geo.G} R={geo.R} passes={geo.passes} "
+            f"smem={smem} B; bound {bms:.3f} ms ({bby})")
+        return ms, plain_ms, err, bms, bby, geo
 
     # ---- K2 ----
     qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B_K2, SEED + 1, dev)
-    ms, plain_ms, err, bms, bby = bt_check(
+    ms, plain_ms, err, bms, bby, geo = bt_check(
         "K2",
         lambda: viterbi_backtrace_lanes(qp, qtr, tp, ttr, tL, shift,
                                         Lq_true=LQ),
@@ -312,13 +362,14 @@ def phase1_kernels(dev):
         source="hhsuite_tpu_torch/csrc/viterbi.cu",
         replaces="hhsuite_tpu/ops/viterbi_lanes.py:646",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=bby, library_ms=None)
+        bound_by=bby, library_ms=None, G=geo.G, R=geo.R,
+        ptxas=bt_usage.get("<0,0,1>"))
     del qp, qtr, tp, ttr, tL
 
     # ---- K3: altali masks at the path's batch; global and SS cases ----
     qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B_K3, SEED + 2, dev)
     co = exclusion_masks(LQ, LT, tL, 3, SEED + 3, dev)
-    ms, plain_ms, err, bms, bby = bt_check(
+    ms, plain_ms, err, bms, bby, geo = bt_check(
         "K3 (altali masks)",
         lambda: viterbi_batch_rows(qp, qtr, tp, ttr, co, tL, shift,
                                    Lq_true=LQ),
@@ -326,26 +377,102 @@ def phase1_kernels(dev):
         B_K3, in_bytes(qp, tp, B_K3) + B_K3 * (LQ + 1) * (LT + 1),
         OPS_BT + 5, tL, 3)
     del qp, qtr, tp, ttr, tL, co
-    qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B_SMALL, SEED + 4, dev)
-    gen = torch.Generator().manual_seed(SEED)
-    ss = (torch.rand((B_SMALL, LQ + 1, LT + 1), generator=gen) - 0.5).to(dev)
-    for tag, local, s in (("K3 global", False, None), ("K3 SS", True, ss)):
-        _ms, _pms, e, _b, _bb = bt_check(
+    # global mode, and SS in the DP (the table form, as the search
+    # passes it) at the SS query's batch of 4096 lanes
+    for tag, B, local, ss in (("K3 global", B_SMALL, False, False),
+                              ("K3 SS", B_K2, True, True)):
+        qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B, SEED + 4, dev)
+        lut, qidx, tidx = ss_lut_inputs(LQ, LT, B, SEED + 5, dev)
+        kw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx) if ss else {}
+        _ms, _pms, e, _b, _bb, _g = bt_check(
             tag,
             lambda: viterbi_batch_rows(qp, qtr, tp, ttr, None, tL, shift,
-                                       ss_score=s, local=local),
+                                       local=local, **kw),
             lambda: viterbi_batch(qp, qtr, tp, ttr, None, tL, shift,
-                                  ss_score=s, local=local),
-            B_SMALL, in_bytes(qp, tp, B_SMALL), OPS_BT, tL, 1)
+                                  local=local, **kw),
+            B, in_bytes(qp, tp, B) + (B * LT + LQ + 1936) * 4 * ss,
+            OPS_BT + ss, tL, 1 + ss)
         err = max(err, e)
+        del qp, qtr, tp, ttr, tL, lut, qidx, tidx, kw
     recs["K3"] = dict(
         name="K3 viterbi_batch_rows", route="cuda",
         source="hhsuite_tpu_torch/csrc/viterbi.cu",
         replaces="hhsuite_tpu/ops/viterbi_rows.py:59",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=bby, library_ms=None)
+        bound_by=bby, library_ms=None, G=geo.G, R=geo.R,
+        ptxas={k: v for k, v in bt_usage.items() if k != "<0,0,1>"})
+    phase1_bt_edges(dev)
     torch.cuda.empty_cache()
     return recs
+
+
+def bt_edge_shapes():
+    """(G, Lq, Lt, B) at the K2/K3 wavefront's edges, at each group width
+    G (8 rows a lane): one query row, a pass of G*8 rows less one,
+    exactly, plus one (a second pass of one row); one template column;
+    one template; a block of 256/G templates left partly empty; and
+    (G chosen by the kernel's geometry) a query longer than K2 takes."""
+    shapes = [(None, 513, 60, 12)]
+    for G in (8, 16, 32):
+        shapes += [(G, 1, 30, 7), (G, 8 * G - 1, 30, 7), (G, 8 * G, 25, 7),
+                   (G, 8 * G + 1, 20, 7), (G, 40, 1, 9), (G, 40, 33, 1),
+                   (G, 40, 24, 256 // G + 3)]
+    return shapes
+
+
+def phase1_bt_edges(dev):
+    """K2 and K3 (global, cell-off, SS table) against the plain version
+    at the wavefront's edges, at each group width G: one query row, a
+    pass of G*R rows less one, exactly, plus one; one template column;
+    one template; a block left partly empty; and K3 at Lq = 513."""
+    import functools
+
+    import torch
+
+    from hhsuite_tpu_torch.ops import viterbi_lanes as VL
+    from hhsuite_tpu_torch.ops.viterbi import (backtrace_walk_packed8,
+                                               viterbi_batch)
+    from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
+
+    shift, n = -0.03, 0
+    orig = VL.bt_geometry
+    try:
+        for k, (G, Lq, Lt, B) in enumerate(bt_edge_shapes()):
+            VL.bt_geometry = functools.partial(orig, G=G)
+            qp, qtr, tp, ttr, tL = synth_inputs(Lq, Lt, B, SEED + 40 + k,
+                                                dev)
+            co = exclusion_masks(Lq, Lt, tL, 1, SEED + 41 + k, dev)
+            lut, qidx, tidx = ss_lut_inputs(Lq, Lt, B, SEED + 42 + k, dev)
+            ss = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+            runs = [("K3", lambda f, c: f(qp, qtr, tp, ttr, c, tL, shift,
+                                          local=False, **ss),
+                     viterbi_batch_rows)]
+            if G is not None:
+                runs.append(("K2", lambda f, c: f(
+                    qp, qtr, tp, ttr, tL, shift, Lq_true=max(1, Lq - 2)),
+                    VL.viterbi_backtrace_lanes))
+            for tag, call, kern in runs:
+                if tag == "K2":
+                    got = call(kern, None)
+                    want = viterbi_batch(qp, qtr, tp, ttr, None, tL, shift,
+                                         Lq_true=max(1, Lq - 2))
+                else:
+                    got = call(kern, co)
+                    want = call(viterbi_batch, co)
+                kmax = Lq + Lt + 1
+                same = all(bits_equal(a, b) for a, b in zip(got, want))
+                walk = torch.equal(
+                    backtrace_walk_packed8(got[3], *got[1:3], got[0], kmax),
+                    backtrace_walk_packed8(want[3], *want[1:3], want[0],
+                                           kmax))
+                if not (same and walk):
+                    raise AssertionError(f"{tag} edge G={G} Lq={Lq} Lt={Lt}"
+                                         f" B={B}: kernel != plain version")
+                n += 1
+    finally:
+        VL.bt_geometry = orig
+    log(f"phase1 K2/K3 wavefront edges: {n} cases bit-identical (score, "
+        "i2, j2, bt, walk payload) at G = 8, 16, 32 and Lq = 513")
 
 
 def ss_lut_inputs(Lq, Lt, B, seed, device):
@@ -991,16 +1118,20 @@ def phase6_ss(base, query_text, counters):
         if last is not None and now != last:
             raise AssertionError("phase6: warm run differs from cold run")
         last = now
-    profile_query("phase6", lambda: engine.run_hhsearch(
+    by_name = profile_query("phase6", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query_ss"),
         set(timers))
+    k3 = [v for name, v in by_name.items() if "vit_bt_kernel" in name]
+    log(f"phase6 K3 device time: {sum(us for us, _n in k3) / 1e3:.2f} ms "
+        f"over {sum(n for _us, n in k3)} launches (profiled warm query)")
     return n
 
 
 def profile_query(tag, run, spans):
     """One more warm query under torch.profiler: device time by kernel
     (device activities only; the ``spans`` annotation ranges are left
-    out) and the device's busy share of the profiled wall time."""
+    out) and the device's busy share of the profiled wall time.  Returns
+    {kernel name: (microseconds, launches)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1026,6 +1157,7 @@ def profile_query(tag, run, spans):
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:10]:
         log(f"{tag} device: {us / 1e3:10.2f} ms {n:7d} x {name[:70]}")
+    return by_name
 
 
 # --------------------------------------------------------- counters ----
@@ -1145,9 +1277,17 @@ def main() -> int:
             for ln in info.log.splitlines():
                 if "registers" in ln or "spill" in ln or "Compiling" in ln:
                     log(f"phase0 ptxas {name}: " + ln.strip())
+        bt_usage = bt_instantiations(ptxas_usage(infos["viterbi"].log))
+        for key, (regs, st, ld) in bt_usage.items():
+            log(f"phase0 vit_bt_kernel{key} (co, ss, local): {regs} "
+                f"registers, {st} bytes spill stores, {ld} bytes spill "
+                "loads")
+        if len(bt_usage) != 8:
+            raise AssertionError(f"phase0: ptxas reported {len(bt_usage)} "
+                                 "vit_bt_kernel instantiations, not 8")
         dev = resolve_device("cuda")
 
-        recs = phase1_kernels(dev)
+        recs = phase1_kernels(dev, bt_usage)
         recs["K6"] = phase1_k6(dev)
         recs.update(phase1_prefilter(dev))
         log("phase1 ok")

@@ -67,7 +67,8 @@ def nvcc_path() -> str:
 
 
 class BuildInfo:
-    """What one library build did: output path, seconds, compiler log."""
+    """What one library build did: output path, seconds, compiler log
+    (a reused build carries the log of the build that made it)."""
 
     def __init__(self, path: str, seconds: float, log: str, cached: bool):
         self.path = path
@@ -90,7 +91,11 @@ def build_cuda_library(name: str) -> BuildInfo:
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(so):
-        return BuildInfo(so, 0.0, "", True)
+        log = ""
+        if os.path.exists(so + ".log"):
+            with open(so + ".log") as f:
+                log = f.read()
+        return BuildInfo(so, 0.0, log, True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
     t0 = time.perf_counter()
@@ -99,8 +104,12 @@ def build_cuda_library(name: str) -> BuildInfo:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}\n"
                            f"{res.stderr}")
+    log = res.stdout + res.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", so + ".log")
     os.replace(tmp, so)
-    return BuildInfo(so, secs, res.stdout + res.stderr, False)
+    return BuildInfo(so, secs, log, False)
 
 
 _LIBS: Dict[str, Tuple[ctypes.CDLL, BuildInfo]] = {}

@@ -72,7 +72,8 @@ def diag_si(qrow, tp, jc, shift, exact=True, sh_fast=None):
 
 def viterbi_batch(qp, qtr, tp, ttr, cell_off, t_L, shift, smin_local=0.0,
                   penalty_gap_query=0.0, penalty_gap_template=0.0,
-                  ss_score=None, local=True, Lq_true: Optional[int] = None):
+                  ss_score=None, local=True, Lq_true: Optional[int] = None,
+                  ss_lut=None, ss_qidx=None, ss_tidx=None):
     """Align one query against a batch of templates (torch, any device).
 
     Args:
@@ -85,6 +86,10 @@ def viterbi_batch(qp, qtr, tp, ttr, cell_off, t_L, shift, smin_local=0.0,
       shift: score offset per aligned pair (par.shift)
       ss_score: optional (B, Lq+1, Lt+1) f32 secondary-structure score
         added to the match score (already weighted by ssw)
+      ss_lut, ss_qidx, ss_tidx: the same term as a table (the form of
+        search/viterbi_search.py:build_ss_lut): ss(b, i, j) =
+        ss_lut[ss_qidx[i-1] + ss_tidx[b, j-1]] for 1 <= j <= t_L[b],
+        else 0 — the values build_ss_score writes; pass it or ss_score
       local: Smith-Waterman vs global
       Lq_true: rows above it are query-length padding and never win the
         best cell (default: every row is real)
@@ -121,6 +126,15 @@ def viterbi_batch(qp, qtr, tp, ttr, cell_off, t_L, shift, smin_local=0.0,
     qrow = qp[:Wi]
     tL = t_L.to(dev, torch.int64)[:, None]
     iif = ii.to(f32)
+    if ss_lut is not None:
+        if ss_score is not None:
+            raise ValueError("viterbi_batch: pass ss_score or ss_lut, "
+                             "not both")
+        # offset 0 at row 0 / column 0: off the grid, never read
+        lut = ss_lut.to(dev, f32)
+        qi = torch.cat([ss_qidx.new_zeros(1), ss_qidx]).to(dev, torch.int64)
+        ti = torch.cat([ss_tidx.new_zeros((B, 1)), ss_tidx],
+                       dim=1).to(dev, torch.int64)
 
     def boundary(d):
         j = d - ii
@@ -145,6 +159,11 @@ def viterbi_batch(qp, qtr, tp, ttr, cell_off, t_L, shift, smin_local=0.0,
         si = diag_si(qrow, tp, jc, sh)
         if ss_score is not None:
             si = si + ss_score[:, ii, jj.clamp(0, Lt)].to(f32)
+        elif ss_lut is not None:
+            jcl = jj.clamp(0, Lt)
+            ss_on = (jj[None] >= 1) & (jj[None] <= tL)
+            si = si + torch.where(ss_on, lut[qi[ii][None] + ti[:, jcl]],
+                                  0.0)
         tm2m1 = ttr[:, jm1, M2M]
         td2m1 = ttr[:, jm1, D2M]
         ti2m1 = ttr[:, jm1, I2M]
@@ -229,6 +248,38 @@ def viterbi_batch(qp, qtr, tp, ttr, cell_off, t_L, shift, smin_local=0.0,
 
 
 # ---------------------------------------------------------------- device ----
+
+# The backtrace kernels' byte layout (csrc/viterbi.cu): backtrace bytes and
+# cell-off masks are stored [B][Lt+1][Wq], row i of column j at byte
+# BT_ROW0 + i, so that each lane's 8 rows (1 + 8m .. 8 + 8m) form one
+# aligned 8-byte word; Wq = bt_col_bytes(Lq).
+BT_ROW0 = 7
+
+
+def bt_col_bytes(Lq: int) -> int:
+    """Bytes per stored column: rows 0..Lq from BT_ROW0 on, room for the
+    last lane's whole word, rounded up to 16."""
+    return -(-(Lq + 8) // 16) * 16
+
+
+def bt_storage(B: int, Lq: int, Lt: int, dtype, device, zero=False):
+    """(storage [B][Lt+1][Wq], its (B, Lq+1, Lt+1) view) in the kernels'
+    layout."""
+    alloc = torch.zeros if zero else torch.empty
+    store = alloc((B, Lt + 1, bt_col_bytes(Lq)), dtype=dtype, device=device)
+    return store, store[:, :, BT_ROW0: BT_ROW0 + Lq + 1].transpose(1, 2)
+
+
+def bt_base(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The [B][Lt+1][Wq] storage of which ``x`` (B, Lq+1, Lt+1) is the
+    :func:`bt_storage` view, or None when ``x`` is laid out otherwise."""
+    B, Li, Wj = x.shape
+    Wq = bt_col_bytes(Li - 1)
+    if (x.stride() != (Wj * Wq, 1, Wq) or x.storage_offset() != BT_ROW0
+            or x.untyped_storage().nbytes() < B * Wj * Wq * x.element_size()):
+        return None
+    return x.as_strided((B, Wj, Wq), (Wj * Wq, Wq, 1), 0)
+
 
 # per-state walk tables (index = state code 0..7): the gap-state bit of
 # the backtrace byte that re-opens MM, and whether the state moves i / j
@@ -417,23 +468,22 @@ def exclusion_mask_device(lo_c, hi_c, lo_r, hi_r):
 
     The altali exclusion masks are O(B*Lq*Lt) bools but are fully
     determined by O(B*P*(Lq+Lt)) intervals, so only the intervals cross
-    to the card.  The mask is built lanes-last ((Li, Wj, B) storage,
-    returned as a (B, Li, Wj) view), the layout the backtrace kernel
-    reads without a copy."""
+    to the card.  The mask is built in the backtrace kernels' storage
+    ([B][Wj][Wq], :func:`bt_storage`) and returned as its (B, Li, Wj)
+    view, which the kernel reads without a copy."""
     B, P, Wj = lo_c.shape
     Li = lo_r.shape[2]
     dev = lo_c.device
-    i_idx = torch.arange(Li, dtype=torch.int32, device=dev)[:, None, None]
+    _store, view = bt_storage(B, Li - 1, Wj - 1, torch.bool, dev, zero=True)
+    m = view.transpose(1, 2)                             # (B, Wj, Li)
+    i_idx = torch.arange(Li, dtype=torch.int32, device=dev)[None, None]
     j_idx = torch.arange(Wj, dtype=torch.int32, device=dev)[None, :, None]
-    mask = torch.zeros((Li, Wj, B), dtype=torch.bool, device=dev)
     for p in range(P):      # P <= altali-1 <= 3
-        lc = lo_c[:, p].T[None]          # (1, Wj, B)
-        hc = hi_c[:, p].T[None]
-        lr = lo_r[:, p].T[:, None]       # (Li, 1, B)
-        hr = hi_r[:, p].T[:, None]
-        mask |= (i_idx >= lc) & (i_idx <= hc)
-        mask |= (j_idx >= lr) & (j_idx <= hr)
-    return mask.permute(2, 0, 1)
+        m |= ((i_idx >= lo_c[:, p, :, None])
+              & (i_idx <= hi_c[:, p, :, None]))
+        m |= ((j_idx >= lo_r[:, p, None, :])
+              & (j_idx <= hi_r[:, p, None, :]))
+    return view
 
 
 # ------------------------------------------------------------------ host ----

@@ -1,14 +1,17 @@
 """Template-lanes Viterbi kernels: K1 and K6 (score-only sweeps) and K2
 (full-backtrace pass), CUDA C++ in ``csrc/viterbi.cu``.
 
-Both map one TEMPLATE to one GPU thread, the way the reference maps
+K1/K6 map one TEMPLATE to one GPU thread, the way the reference maps
 templates to SIMD lanes (src/hhviterbialgorithm.cpp:45-497), and walk
-query rows and template columns in the reference's row-sequential order
-(see the kernel source for the layout).  Each wrapper takes the JAX
-package's shapes — ``tp`` (B, Lt+2, 20), ``ttr`` (B, Lt+2, 7) — and reads
-them lanes-last: ``tp.permute(1, 2, 0).contiguous()`` is free when the
-caller's storage is already (Lt+2, 20, B), as the resident template pack
-hands it out.
+query rows and template columns in the reference's row-sequential order.
+K2 (and K3, the same kernel) give each template a group of G lanes that
+sweep an anti-diagonal wavefront: lane k holds 8 query rows and computes
+column s - k + 1 at step s, taking the row above from lane k-1 by a warp
+shuffle (see the kernel source for the design and the layouts).  Each
+wrapper takes the JAX package's shapes — ``tp`` (B, Lt+2, 20), ``ttr``
+(B, Lt+2, 7) — and reads them lanes-last: ``tp.permute(1, 2,
+0).contiguous()`` is free when the caller's storage is already (Lt+2,
+20, B), as the resident template pack hands it out.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.  ``<wrapper>.launches`` counts
@@ -37,23 +40,44 @@ K2 ``viterbi_backtrace_lanes`` replaces
 hhsuite_tpu/ops/viterbi_lanes.py:viterbi_backtrace_lanes: the full local
 Viterbi (no cell-off, no SS) with score, best cell (score desc, i asc,
 j asc) and the backtrace bytes, bit-identical to
-:func:`ops.viterbi.viterbi_batch`.  The bytes come back as a
-(B, Lq+1, Lt+1) view of lanes-last storage, which the device walk
-(:func:`ops.viterbi.backtrace_walk_packed8`) reads in place.
+:func:`ops.viterbi.viterbi_batch`.  :func:`bt_geometry` picks the
+launch's group width G, and the bytes come back as a (B, Lq+1, Lt+1)
+view of [B][Lt+1][Wq] storage (:func:`ops.viterbi.bt_storage`), which
+the device walk (:func:`ops.viterbi.backtrace_walk_packed8`) reads in
+place.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .viterbi import (D2D, D2M, FLT_MAX, I2I, I2M, M2D, M2I, M2M, _diag_index,
-                      _up, diag_si, fmax, viterbi_batch)
+                      _up, bt_base, bt_storage, diag_si, fmax, viterbi_batch)
 
 _BOUND = {}
+
+
+def bind(lib):
+    """Set the C signatures of ``csrc/viterbi.cu``'s entry points on a
+    loaded library."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, I, P, P,
+                                 P, P, P]
+    lib.hh_vit_score.restype = I
+    lib.hh_vit_bt.argtypes = [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I,
+                              F, F, F, I, P, P, P, P, P, P]
+    lib.hh_vit_bt.restype = I
+    lib.hh_bt_smem_bytes.argtypes = [I, I]
+    lib.hh_bt_smem_bytes.restype = I
+    lib.hh_bt_col_stride.argtypes = [I]
+    lib.hh_bt_col_stride.restype = I
+    lib.hh_error_string.argtypes = [I]
+    lib.hh_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def cuda_lib():
@@ -62,15 +86,7 @@ def cuda_lib():
 
     lib, _info = cuda_library("viterbi")
     if not _BOUND.get(id(lib)):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, I, P,
-                                     P, P, P, P]
-        lib.hh_vit_score.restype = I
-        lib.hh_vit_bt.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, F, F,
-                                  F, P, P, P, P, P, P]
-        lib.hh_vit_bt.restype = I
-        lib.hh_error_string.argtypes = [I]
-        lib.hh_error_string.restype = ctypes.c_char_p
+        bind(lib)
         _BOUND[id(lib)] = True
     return lib
 
@@ -264,6 +280,20 @@ viterbi_score_lanes_fused.launches = 0
 SS_LUT_MAX = 4 * 11 * 4 * 11
 
 
+def ss_table_args(ss_lut, ss_qidx, ss_tidx, Lq, B, Lt, dev, what):
+    """The SS table form checked and moved to the card as the kernels
+    read it: lut f32, qidx (Lq,) i32, tidxT [Lt][B] i32."""
+    if not 0 < ss_lut.numel() <= SS_LUT_MAX:
+        raise ValueError(f"{what}: ss_lut has {ss_lut.numel()} entries "
+                         f"(1..{SS_LUT_MAX})")
+    if tuple(ss_qidx.shape) != (Lq,) or tuple(ss_tidx.shape) != (B, Lt):
+        raise ValueError(f"{what}: ss_qidx must be (Lq,) and ss_tidx "
+                         "(B, Lt)")
+    return dict(lut=ss_lut.to(dev, torch.float32).contiguous(),
+                qidx=ss_qidx.to(dev, torch.int32).contiguous(),
+                tidxT=_lanes_last(ss_tidx.to(dev), torch.int32))
+
+
 def viterbi_score_lanes(qp, qtr, tp, ttr, t_L, shift, ss_score=None,
                         ss_lut=None, ss_qidx=None, ss_tidx=None,
                         si_dtype="float32"):
@@ -300,14 +330,7 @@ def viterbi_score_lanes(qp, qtr, tp, ttr, t_L, shift, ss_score=None,
                              f"!= {(B, Lq + 1, Lt + 1)}")
         kw["ss"] = _lanes_last(ss_score.to(dev), f32)
     elif ss_lut is not None:
-        if not 0 < ss_lut.numel() <= SS_LUT_MAX:
-            raise ValueError(f"K6: ss_lut has {ss_lut.numel()} entries "
-                             f"(1..{SS_LUT_MAX})")
-        if tuple(ss_qidx.shape) != (Lq,) or tuple(ss_tidx.shape) != (B, Lt):
-            raise ValueError("K6: ss_qidx must be (Lq,) and ss_tidx (B, Lt)")
-        kw = dict(lut=ss_lut.to(dev, f32).contiguous(),
-                  qidx=ss_qidx.to(dev, torch.int32).contiguous(),
-                  tidxT=_lanes_last(ss_tidx.to(dev), torch.int32))
+        kw = ss_table_args(ss_lut, ss_qidx, ss_tidx, Lq, B, Lt, dev, "K6")
     out = launch_score(qp, qtr, tp, ttr, shift, False,
                        "K6 viterbi_score_lanes", **kw)
     viterbi_score_lanes.launches += 1
@@ -319,11 +342,64 @@ viterbi_score_lanes.launches = 0
 
 # ------------------------------------------------------------------ K2 --
 
-def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, ss_score, shift, local,
-              Lq_true, penalty_gap_query=0.0, penalty_gap_template=0.0):
+# csrc/viterbi.cu's wavefront constants: threads per block and query rows
+# per lane (the kernel's shared-memory layout stays in the source:
+# hh_bt_smem_bytes)
+BT_THREADS, BT_R = 256, 8
+# lanes that keep 8 warps on each of the H100's 132 SMs
+_BT_FULL_LANES = 132 * 8 * 32
+
+
+class BtGeometry(NamedTuple):
+    """One launch of the backtrace kernel: G lanes a template, R query
+    rows a lane, ``passes`` passes of G*R rows, ``groups`` templates a
+    block of BT_THREADS."""
+    G: int
+    R: int
+    passes: int
+    groups: int
+
+    def row(self, p: int, k: int, r: int) -> int:
+        """The query row of pass ``p``, lane ``k``, register row ``r``
+        (rows past Lq in the last pass are computed and dropped)."""
+        return p * self.G * self.R + k * self.R + r + 1
+
+
+def bt_geometry(B: int, Lq: int, Lt: int,
+                G: Optional[int] = None) -> BtGeometry:
+    """Launch geometry of the backtrace kernel for B templates of Lt
+    columns and a query of Lq rows.  The group width G is ``G`` when
+    given (8, 16 or 32), else 8 or 32, the one with the least estimated
+    time: passes x (Lt + G - 1) steps, scaled by how far B*G lanes exceed
+    what keeps 8 warps on every SM (G = 32 fills the card at small B, G =
+    8 wastes fewer rows on the last pass and fewer fill/drain steps).
+    G = 16 is left to callers that ask for it: no timed shape favours
+    it."""
+    if B < 1 or Lq < 1 or Lt < 1:
+        raise ValueError(f"backtrace kernel: B={B}, Lq={Lq}, Lt={Lt} "
+                         "must be >= 1")
+    if G not in (None, 8, 16, 32):
+        raise ValueError(f"backtrace kernel: G={G} is not 8, 16 or 32")
+
+    def passes(G):
+        return -(-Lq // (G * BT_R))
+
+    def cost(G):
+        return passes(G) * (Lt + G - 1) * max(1.0, B * G / _BT_FULL_LANES)
+
+    G = G or min((8, 32), key=cost)
+    return BtGeometry(G, BT_R, passes(G), BT_THREADS // G)
+
+
+def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, shift, local, Lq_true,
+              penalty_gap_query=0.0, penalty_gap_template=0.0, lut=None,
+              qidx=None, tidxT=None):
     """Launch the backtrace kernel (K2: no cell-off, no SS, local; K3:
-    any).  Returns (score, i2, j2, bt) with bt a (B, Lq+1, Lt+1) view of
-    lanes-last storage."""
+    any; the SS term as ``lut`` with ``qidx`` and ``tidxT`` [Lt][B] on
+    the card).  ``cell_off`` (B, Lq+1, Lt+1) is read in place when it is
+    a view of the kernel's storage (:func:`ops.viterbi.bt_storage`, as
+    ``exclusion_mask_device`` builds it), else laid out so.  Returns
+    (score, i2, j2, bt) with bt a (B, Lq+1, Lt+1) view of that storage."""
     dev = _require_cuda(tp, ttr)
     lib = cuda_lib()
     f32 = torch.float32
@@ -333,32 +409,42 @@ def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, ss_score, shift, local,
     if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7) \
             or tuple(t_L.shape) != (B,):
         raise ValueError("backtrace kernel: inconsistent shapes")
-    for name, x in (("cell_off", cell_off), ("ss_score", ss_score)):
-        if x is not None and tuple(x.shape) != (B, Lq + 1, Lt + 1):
-            raise ValueError(f"backtrace kernel: {name} shape "
-                             f"{tuple(x.shape)} != {(B, Lq + 1, Lt + 1)}")
+    geo = bt_geometry(B, Lq, Lt)
+    co = None
+    if cell_off is not None:
+        if tuple(cell_off.shape) != (B, Lq + 1, Lt + 1) \
+                or cell_off.dtype not in (torch.bool, torch.uint8):
+            raise ValueError(f"backtrace kernel: cell_off must be bool "
+                             f"{(B, Lq + 1, Lt + 1)}, not {cell_off.dtype} "
+                             f"{tuple(cell_off.shape)}")
+        cell_off = cell_off.to(dev)
+        co = bt_base(cell_off)
+        if co is None:
+            co, view = bt_storage(B, Lq, Lt, cell_off.dtype, dev)
+            view.copy_(cell_off)
     qp_c = qp.to(dev, f32).contiguous()
     qtr_c = qtr.to(dev, f32).contiguous()
     tpT = _lanes_last(tp, f32)
     ttrT = _lanes_last(ttr, f32)
     tL = t_L.to(dev, torch.int32).contiguous()
-    co = None if cell_off is None else _lanes_last(cell_off, torch.bool)
-    ss = None if ss_score is None else _lanes_last(ss_score, f32)
-    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
+    scratch = (torch.empty((B, Lt + 1, 5), dtype=f32, device=dev)
+               if geo.passes > 1 else None)
     score = torch.empty(B, dtype=f32, device=dev)
     i2 = torch.empty(B, dtype=torch.int32, device=dev)
     j2 = torch.empty(B, dtype=torch.int32, device=dev)
-    bt = torch.empty((Lq + 1, Lt + 1, B), dtype=torch.uint8, device=dev)
+    bt_s, bt = bt_storage(B, Lq, Lt, torch.uint8, dev)
     lqt = Lq if Lq_true is None else int(Lq_true)
+    n_lut = 0 if lut is None else int(lut.numel())
     rc = lib.hh_vit_bt(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT),
-                       _ptr(tL), _ptr(co), _ptr(ss), B, Lq, Lt, lqt,
-                       int(bool(local)), float(np.float32(shift)),
+                       _ptr(tL), _ptr(co), _ptr(lut), n_lut, _ptr(qidx),
+                       _ptr(tidxT), B, Lq, Lt, lqt, int(bool(local)),
+                       float(np.float32(shift)),
                        float(np.float32(penalty_gap_query)),
                        float(np.float32(penalty_gap_template)),
-                       _ptr(scratch), _ptr(score), _ptr(i2), _ptr(j2),
-                       _ptr(bt), _stream(dev))
+                       geo.G, _ptr(scratch), _ptr(score), _ptr(i2),
+                       _ptr(j2), _ptr(bt_s), _stream(dev))
     _check(lib, rc, "Viterbi backtrace kernel")
-    return score, i2, j2, bt.permute(2, 0, 1)
+    return score, i2, j2, bt
 
 
 def viterbi_backtrace_lanes(qp, qtr, tp, ttr, t_L, shift, Lq_true=None):
@@ -367,7 +453,7 @@ def viterbi_backtrace_lanes(qp, qtr, tp, ttr, t_L, shift, Lq_true=None):
     if tp.device.type == "cpu":
         return viterbi_batch(qp, qtr, tp, ttr, None, t_L, shift, 0.0, 0.0,
                              0.0, local=True, Lq_true=Lq_true)
-    out = launch_bt(qp, qtr, tp, ttr, t_L, None, None, shift, True, Lq_true)
+    out = launch_bt(qp, qtr, tp, ttr, t_L, None, shift, True, Lq_true)
     viterbi_backtrace_lanes.launches += 1
     return out
 

@@ -181,48 +181,12 @@ def build_ss_lut(q: HMM, templates: List[HMM], ss_hmm_mode: int,
             tidx[b, : t.L] = t.ss_pred[tj].astype(i32) * MAXCF \
                 + t.ss_conf[tj]
     qidx = qidx.astype(i32)
-    # K6 and K3's gather index the table without a bound on the card:
+    # K6 and K3 index the table without a bound on the card:
     # check the offsets here, on the host, where it costs no sync
     if (qidx.min() < 0 or tidx.min(initial=0) < 0
             or int(qidx.max()) + int(tidx.max(initial=0)) >= len(lut)):
         raise ValueError("SS table offsets out of range")
     return lut, qidx, tidx
-
-
-# elements per chunk of ss_score_device's index (int32: 64 MiB)
-_SS_GATHER_CHUNK = 1 << 24
-
-
-def ss_score_device(lut: np.ndarray, qidx: np.ndarray, tidx: np.ndarray,
-                    t_L: torch.Tensor) -> torch.Tensor:
-    """The dense SS score matrix of a batch gathered on ``t_L``'s device
-    from the LUT form (:func:`build_ss_lut`, ``tidx`` (B, Lt)): a
-    (B, Lq+1, Lt+1) f32 view of lanes-last storage, the layout K3 reads.
-    ss[b, i, j] = lut[qidx[i-1] + tidx[b, j-1]] for 1 <= i and
-    1 <= j <= t_L[b], else 0 — the f32 values :func:`build_ss_score`
-    writes, so K3 sees the same matrix as from the host fill.
-
-    Row 0 and the columns outside 1..t_L[b] get offsets >= n, clamped to
-    n, a zero appended to the table; the index is built a few rows at a
-    time, so the device holds the result and one chunk beside it."""
-    dev = t_L.device
-    B, Lt = tidx.shape
-    Lq = len(qidx)
-    n = len(lut)
-    lut_d = _host_to(np.append(lut, np.float32(0.0)), dev)
-    qi = _host_to(np.concatenate([[n], qidx]).astype(np.int32), dev)
-    ti = torch.zeros((Lt + 1, B), dtype=torch.int32, device=dev)
-    ti[1:] = _host_to(tidx.T, dev)
-    jj = torch.arange(Lt + 1, device=dev)[:, None]
-    col_ok = (jj >= 1) & (jj <= t_L.to(dev)[None, :])          # (Lt+1, B)
-    ti.masked_fill_(~col_ok, n)
-    ss = torch.empty((Lq + 1, Lt + 1, B), dtype=torch.float32, device=dev)
-    rows = max(1, _SS_GATHER_CHUNK // ((Lt + 1) * B))
-    for r0 in range(0, Lq + 1, rows):
-        idx = (qi[r0: r0 + rows, None, None] + ti[None]).clamp_(max=n)
-        ss[r0: r0 + rows] = torch.index_select(
-            lut_d, 0, idx.view(-1)).view(idx.shape)
-    return ss.permute(2, 0, 1)
 
 
 def score_for_backtrace(q: HMM, t: HMM, align_score: float,
@@ -672,19 +636,22 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                                       tmpl_list[i].L)
                 cell_off = _host_to(co, dev)
 
-            ss_batch = None
+            ss_kw = {}
             if ss_in_dp:
-                # K3's dense SS input, gathered on the device from the
-                # LUT form (SS queries are never Lq-bucketed: Lq == q.L)
+                # K3's SS term as the table K6 reads (SS queries are
+                # never Lq-bucketed: Lq == q.L); padded lanes have
+                # t_L = 0, so their term is 0
                 lut, qidx, tidx = build_ss_lut(q, batch, ss_hmm_mode,
                                                par.ssw, S73, S37, S33,
                                                Lt_max)
                 tidx = np.pad(tidx, ((0, Bp - len(batch)), (0, 0)))
-                ss_batch = ss_score_device(lut, qidx, tidx, t_L)
+                ss_kw = dict(ss_lut=_host_to(lut, dev),
+                             ss_qidx=_host_to(qidx, dev),
+                             ss_tidx=_host_to(tidx, dev))
 
             with annotate("viterbi_backtrace_pass"):
                 if (bucket_lt is not None and cell_off is None
-                        and ss_batch is None and bool(par.loc)
+                        and not ss_kw and bool(par.loc)
                         and Lq <= 512):
                     # hot path: K2 over the gathered batch
                     score, i2, j2, bt = viterbi_backtrace_lanes(
@@ -694,14 +661,14 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                     # mode, long queries, per-batch packing
                     score, i2, j2, bt = viterbi_batch_rows(
                         qp_k, qtr_k, tp, ttr, cell_off, t_L, shift,
-                        ss_score=ss_batch, local=bool(par.loc),
-                        Lq_true=q.L, penalty_gap_query=par.egq,
-                        penalty_gap_template=par.egt)
+                        local=bool(par.loc), Lq_true=q.L,
+                        penalty_gap_query=par.egq,
+                        penalty_gap_template=par.egt, **ss_kw)
                 # walk the backtrace on the device: only an int8 state
                 # string + header per lane reaches the host
                 packed = _payload(V.backtrace_walk_packed8(
                     bt, i2, j2, score, kmax=kmax))
-                del bt, cell_off, ss_batch
+                del bt, cell_off
             pending.append((idxs, batch, ss_hmm_mode, packed, kmax))
         stage_add("host_vit_dispatch", _time.perf_counter() - _t_p1)
 

@@ -1,10 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 the Viterbi kernels (K1, K2, K3, K6) bit for bit, the prefilter kernels (K4,
 K5) as integers — phase 1 of ``chip_smoke.py``, at small shapes, at the
-prefilter's path shape and at long queries.  Needs a CUDA card;
-elsewhere every test skips.  On a machine with a card:
+prefilter's path shape and at long queries; K2/K3 also at the edges of
+their wavefront (one row, a pass of G*R rows less one, exactly, plus
+one, at each group width G; one column; one template; a block not
+filled).  Needs a CUDA card; elsewhere every test skips.  On a machine
+with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -12,6 +17,7 @@ import torch
 
 from hhsuite_tpu_torch.ops import prefilter as PK
 from hhsuite_tpu_torch.ops import viterbi as TV
+from hhsuite_tpu_torch.ops import viterbi_lanes as VL
 from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
                                                  viterbi_score_lanes,
                                                  viterbi_score_lanes_fused,
@@ -19,6 +25,7 @@ from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 from hhsuite_tpu_torch.search.prefilter import to_device_cs219
+from chip_smoke import bt_edge_shapes
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
@@ -71,10 +78,20 @@ def test_k2_kernel_bit_identical(cuda, shape):
                                   Lq_true=shape[0] - 3)
     want = TV.viterbi_batch(qp, qtr, tp, ttr, None, tl, -0.03,
                             Lq_true=shape[0] - 3)
+    _check_bt(got, want, shape[0] + shape[1] + 1)
+
+
+def _ss_table(dev, shape, seed):
+    lut, qidx, tidx, _dense = _ss_lut_inputs(*shape, seed=seed)
+    return {k: torch.from_numpy(x).to(dev) for k, x in
+            (("ss_lut", lut), ("ss_qidx", qidx), ("ss_tidx", tidx))}
+
+
+def _check_bt(got, want, kmax):
+    """score, i2, j2 and bt bit for bit, and the same walk payload."""
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _same(a, b)
-    kmax = shape[0] + shape[1] + 1
     pa = TV.backtrace_walk_packed8(got[3], *got[1:3], got[0], kmax)
     pb = TV.backtrace_walk_packed8(want[3], *want[1:3], want[0], kmax)
     assert torch.equal(pa, pb)
@@ -83,23 +100,28 @@ def test_k2_kernel_bit_identical(cuda, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("local,use_co,use_ss", [
     (True, True, False), (False, False, False), (False, True, False),
-    (True, False, True)])
+    (True, False, True), (False, True, True)])
 def test_k3_kernel_bit_identical(cuda, shape, local, use_co, use_ss):
-    qp, qtr, tp, ttr, tl, co, ss = _on(cuda, shape, 3)
+    qp, qtr, tp, ttr, tl, co, _ss = _on(cuda, shape, 3)
     co = co if use_co else None
-    ss = ss if use_ss else None
-    got = viterbi_batch_rows(qp, qtr, tp, ttr, co, tl, -0.03, ss_score=ss,
-                             local=local)
-    want = TV.viterbi_batch(qp, qtr, tp, ttr, co, tl, -0.03, ss_score=ss,
-                            local=local)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert _same(a, b)
+    kw = _ss_table(cuda, shape, 9) if use_ss else {}
+    got = viterbi_batch_rows(qp, qtr, tp, ttr, co, tl, -0.03, local=local,
+                             **kw)
+    want = TV.viterbi_batch(qp, qtr, tp, ttr, co, tl, -0.03, local=local,
+                            **kw)
+    _check_bt(got, want, shape[0] + shape[1] + 1)
+
+
+def test_k3_refuses_dense_ss_on_the_card(cuda):
+    qp, qtr, tp, ttr, tl, _co, ss = _on(cuda, (37, 29, 40), 3)
+    with pytest.raises(ValueError, match="table"):
+        viterbi_batch_rows(qp, qtr, tp, ttr, None, tl, -0.03, ss_score=ss)
 
 
 def test_kernels_take_exclusion_masks_in_place(cuda):
-    """The device-built exclusion mask is a lanes-last view; the kernel
-    reads it without a copy and matches the plain version."""
+    """The device-built exclusion mask is a view of the kernel's
+    storage; the kernel reads it without a copy and matches the plain
+    version."""
     shape = (64, 100, 70)
     qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 4)
     rng = np.random.default_rng(4)
@@ -110,12 +132,44 @@ def test_kernels_take_exclusion_masks_in_place(cuda):
     hi_r = (lo_r + rng.integers(-3, 30, (B, 2, Li))).astype(np.int16)
     mask = TV.exclusion_mask_device(*(torch.from_numpy(x).to(cuda)
                                       for x in (lo_c, hi_c, lo_r, hi_r)))
-    assert mask.movedim(0, -1).is_contiguous()
+    assert TV.bt_base(mask) is not None
     got = viterbi_batch_rows(qp, qtr, tp, ttr, mask, tl, -0.03)
     want = TV.viterbi_batch(qp, qtr, tp, ttr, mask.contiguous(), tl, -0.03)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert _same(a, b)
+    _check_bt(got, want, shape[0] + shape[1] + 1)
+
+
+@pytest.mark.parametrize("G,Lq,Lt,B", [e for e in bt_edge_shapes() if e[0]])
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_bt_kernel_wavefront_edges(cuda, monkeypatch, kernel, G, Lq, Lt,
+                                   B):
+    monkeypatch.setattr(VL, "bt_geometry",
+                        functools.partial(VL.bt_geometry, G=G))
+    qp, qtr, tp, ttr, tl, co, _ss = _on(cuda, (Lq, Lt, B), 10 + G)
+    if kernel == "K2":
+        got = viterbi_backtrace_lanes(qp, qtr, tp, ttr, tl, -0.03,
+                                      Lq_true=max(1, Lq - 2))
+        want = TV.viterbi_batch(qp, qtr, tp, ttr, None, tl, -0.03,
+                                Lq_true=max(1, Lq - 2))
+    else:
+        kw = _ss_table(cuda, (Lq, Lt, B), G)
+        got = viterbi_batch_rows(qp, qtr, tp, ttr, co, tl, -0.03,
+                                 local=False, **kw)
+        want = TV.viterbi_batch(qp, qtr, tp, ttr, co, tl, -0.03,
+                                local=False, **kw)
+    _check_bt(got, want, Lq + Lt + 1)
+
+
+@pytest.mark.parametrize("local", [True, False])
+def test_k3_query_longer_than_k2_takes(cuda, local):
+    """Lq = 513, past K2's 512 rows: the search routes it to K3."""
+    shape = (513, 60, 12)
+    qp, qtr, tp, ttr, tl, co, _ss = _on(cuda, shape, 11)
+    kw = _ss_table(cuda, shape, 12)
+    got = viterbi_batch_rows(qp, qtr, tp, ttr, co, tl, -0.03, local=local,
+                             **kw)
+    want = TV.viterbi_batch(qp, qtr, tp, ttr, co, tl, -0.03, local=local,
+                            **kw)
+    _check_bt(got, want, shape[0] + shape[1] + 1)
 
 
 # chip_smoke's K6 edge shapes (Lq, Lt, B): short queries (one partial

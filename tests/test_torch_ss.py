@@ -5,8 +5,9 @@ versions of the kernels).
   held to the tolerances of tests/test_ss_scoring.py, and ``-ssm 1``;
 * the same search against the JAX package's ``run_hhsearch`` (scores and
   E-values with the correlation term off, as test_torch_hhsearch.py);
-* K3's SS input gathered on the device from the LUT form, bit-identical
-  to the host fill ``build_ss_score`` in all three SS modes;
+* the plain Viterbi with K3's SS input, the LUT form, bit-identical to
+  the same call with the host fill ``build_ss_score`` in all three SS
+  modes;
 * the SS funnel (K6 sweep with the SS LUT, forced on as in
   test_torch_funnel.py) against the single-pass search.
 """
@@ -156,7 +157,7 @@ def test_ss_search_matches_jax(ss_db):
                                rtol=1e-4)
 
 
-# ---------------------------------------------------- device SS gather --
+# ------------------------------------------------------ SS table form --
 
 def _fake_hmm(rng, L, dssp):
     n = L + 2
@@ -168,34 +169,51 @@ def _fake_hmm(rng, L, dssp):
         else np.zeros(n, np.int8))
 
 
+@pytest.mark.parametrize("local", [True, False])
 @pytest.mark.parametrize("mode", [vs_mod.PRED_PRED, vs_mod.PRED_DSSP,
                                   vs_mod.DSSP_PRED])
-def test_ss_gather_matches_host_fill(mode, monkeypatch):
-    """ss_score_device(build_ss_lut(...)) == the padded host matrix of
-    build_ss_score, bit for bit, padding lanes and columns included, in
-    one chunk of rows and in chunks of 3 rows."""
+def test_ss_table_matches_host_fill(mode, local):
+    """viterbi_batch with the SS term as build_ss_lut's table (K3's form
+    on the card) == viterbi_batch with build_ss_score's padded host
+    matrix: score, i2, j2 and every backtrace byte bit for bit, padding
+    lanes and columns included."""
+    from hhsuite_tpu_torch.ops.viterbi import viterbi_batch
+    from test_torch_viterbi import make_inputs
+
     rng = np.random.default_rng(mode)
     mats = get_ss_matrices(1.0)
     q = _fake_hmm(rng, 37, mode == vs_mod.DSSP_PRED)
-    batch = [_fake_hmm(rng, L, mode == vs_mod.PRED_DSSP)
-             for L in (64, 40, 1, 57)]
+    lengths = (64, 40, 1, 57)
+    batch = [_fake_hmm(rng, L, mode == vs_mod.PRED_DSSP) for L in lengths]
     Lt_max, Bp, ssw = 64, 6, 0.11
-    want = np.zeros((Bp, q.L + 1, Lt_max + 1), np.float32)
+    qp, qtr, tp, ttr, _tl, _co, _ss = make_inputs(q.L, Lt_max, Bp, seed=mode)
+    t_L = np.array(list(lengths) + [0] * (Bp - len(batch)), np.int32)
+    for b in range(Bp):                 # pad past each lane's length
+        tp[b, t_L[b] + 1:] = 0.0
+        ttr[b, t_L[b] + 1:] = -np.finfo(np.float32).max
+    dense = np.zeros((Bp, q.L + 1, Lt_max + 1), np.float32)
     for b, t in enumerate(batch):
-        want[b, :, : t.L + 1] = vs_mod.build_ss_score(
+        dense[b, :, : t.L + 1] = vs_mod.build_ss_score(
             q, t, mode, ssw, mats.S73, mats.S37, mats.S33)
     lut, qidx, tidx = vs_mod.build_ss_lut(q, batch, mode, ssw, mats.S73,
                                           mats.S37, mats.S33, Lt_max)
     assert qidx.dtype == np.int32 and qidx.max() + tidx.max() < len(lut)
     tidx = np.pad(tidx, ((0, Bp - len(batch)), (0, 0)))
-    t_L = torch.tensor([t.L for t in batch] + [0] * (Bp - len(batch)),
-                       dtype=torch.int32)
-    for chunk in (vs_mod._SS_GATHER_CHUNK, 3 * (Lt_max + 1) * Bp):
-        monkeypatch.setattr(vs_mod, "_SS_GATHER_CHUNK", chunk)
-        got = vs_mod.ss_score_device(lut, qidx, tidx, t_L)
-        assert got.movedim(0, -1).is_contiguous()      # K3's layout
-        np.testing.assert_array_equal(got.numpy().view(np.int32),
-                                      want.view(np.int32))
+    args = [torch.from_numpy(x) for x in (qp, qtr, tp, ttr)]
+    tl = torch.from_numpy(t_L)
+    want = viterbi_batch(*args, None, tl, -0.03, local=local,
+                         ss_score=torch.from_numpy(dense))
+    got = viterbi_batch(*args, None, tl, -0.03, local=local,
+                        ss_lut=torch.from_numpy(lut),
+                        ss_qidx=torch.from_numpy(qidx),
+                        ss_tidx=torch.from_numpy(tidx))
+    for a, b in zip(got, want):
+        a, b = a.numpy(), b.numpy()
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b)
+    plain = viterbi_batch(*args, None, tl, -0.03, local=local)
+    assert not np.array_equal(plain[0].numpy(), got[0].numpy())
 
 
 @pytest.mark.parametrize("pred, conf", [(NSSPRED - 1, MAXCF), (0, -1)])

@@ -105,10 +105,34 @@ def test_walk_reads_lanes_last_view():
     np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_walk_reads_kernel_storage_view(shape):
+    """The backtrace kernels return bt as a (B, Lq+1, Lt+1) view of
+    [B][Lt+1][Wq] storage (ops.viterbi.bt_storage); the walk gives the
+    same payload on it as on a contiguous copy."""
+    Lq, Lt, B = shape
+    (sj, ij, jj, btj), _ = run_both(Lq, Lt, B, True, True, False, seed=5)
+    store, view = TV.bt_storage(B, Lq, Lt, torch.uint8, "cpu")
+    store.fill_(0xAB)               # bytes outside the view never matter
+    view.copy_(torch.from_numpy(btj.copy()))
+    assert TV.bt_base(view).data_ptr() == store.data_ptr()
+    assert view.stride() == ((Lt + 1) * TV.bt_col_bytes(Lq), 1,
+                             TV.bt_col_bytes(Lq))
+    kmax = Lq + Lt + 1
+    args = [torch.from_numpy(x.copy()) for x in (ij, jj, sj)]
+    a = TV.backtrace_walk_packed8(view, *args, kmax).numpy()
+    b = TV.backtrace_walk_packed8(view.contiguous(), *args, kmax).numpy()
+    np.testing.assert_array_equal(a, b)
+    assert (a[:, 12:] != 0).any()
+
+
 @pytest.mark.parametrize("P", [1, 3])
-def test_exclusion_mask_device_matches_jax(P):
+@pytest.mark.parametrize("Li,Wj", [(33, 27), (9, 130)])
+def test_exclusion_mask_device_matches_jax(P, Li, Wj):
+    """The device-built mask equals the JAX package's and lies in the
+    backtrace kernels' storage, so K3 reads it without a copy."""
     rng = np.random.default_rng(P)
-    B, Li, Wj = 4, 33, 27
+    B = 4
     lo_c = rng.integers(0, Li, (B, P, Wj)).astype(np.int16)
     hi_c = (lo_c + rng.integers(-3, 12, (B, P, Wj))).astype(np.int16)
     lo_r = rng.integers(0, Wj, (B, P, Li)).astype(np.int16)
@@ -118,4 +142,14 @@ def test_exclusion_mask_device_matches_jax(P):
     got = TV.exclusion_mask_device(
         *(torch.from_numpy(x) for x in (lo_c, hi_c, lo_r, hi_r)))
     assert got.shape == (B, Li, Wj)
+    assert TV.bt_base(got) is not None
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_bt_base_only_takes_kernel_storage():
+    x = torch.zeros((3, 10, 8), dtype=torch.bool)
+    assert TV.bt_base(x) is None
+    assert TV.bt_base(x.permute(0, 2, 1)) is None
+    store, view = TV.bt_storage(3, 9, 7, torch.bool, "cpu", zero=True)
+    assert view.shape == (3, 10, 8)
+    assert TV.bt_base(view).shape == store.shape

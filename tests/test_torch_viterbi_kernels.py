@@ -12,9 +12,11 @@ kernels are held against those plain versions bit for bit on the card
 * K1 vs JAX ``viterbi_score_lanes_fused(interpret=True)``: that test's
   own rtol 2e-3 / atol 0.3, because the JAX kernel casts its dot operands
   to bf16 (tests/test_viterbi_lanes_fused.py:31-47);
-* K3 vs JAX ``viterbi_batch_rows(interpret=True)``: identical backtrace
-  bytes and end cells, scores within rtol 1e-6 / atol 1e-4 (the JAX
-  kernel's tree scans drift by ~1 ulp, viterbi_rows.py:34-38);
+* K3 vs JAX ``viterbi_batch_rows(interpret=True)``, with and without a
+  cell-off mask and SS (the port's table form against the dense matrix
+  it defines): identical backtrace bytes and end cells, scores within
+  rtol 1e-6 / atol 1e-4 (the JAX kernel's tree scans drift by ~1 ulp,
+  viterbi_rows.py:34-38);
 * K6 vs JAX ``viterbi_score_lanes(si_dtype="float32", interpret=True)``,
   dense and LUT SS: rtol 2e-6 / atol 1e-4, the profile dot's summation
   order (as tests/test_viterbi_lanes.py holds the JAX kernel to its
@@ -136,24 +138,56 @@ def test_k2_lq_true_excludes_padding_rows():
                                   ref[3].numpy())
 
 
+@pytest.mark.parametrize("with_ss", [False, True])
 @pytest.mark.parametrize("with_co", [False, True])
-def test_k3_plain_matches_jax_rows_interpret(with_co):
+def test_k3_plain_matches_jax_rows_interpret(with_co, with_ss):
+    """K3's plain version against the JAX kernel in interpret mode; with
+    SS the port takes the table form (as K3 on the card) and the JAX
+    kernel the dense matrix it defines (0 past each template's length)."""
     Lq, Lt, B = 37, 29, 4
     qp, qtr, tp, ttr, t_L, co, _ss = make_inputs(Lq, Lt, B, seed=7)
     co_arg = co if with_co else None
+    jkw, tkw = {}, {}
+    if with_ss:
+        lut, qidx, tidx, dense = _ss_lut_inputs(Lq, Lt, B, seed=17)
+        dense *= np.arange(Lt + 1)[None, None, :] <= t_L[:, None, None]
+        jkw = dict(ss_score=dense)
+        tkw = dict(ss_lut=torch.from_numpy(lut),
+                   ss_qidx=torch.from_numpy(qidx),
+                   ss_tidx=torch.from_numpy(tidx))
     sj, ij, jj, btj = [np.asarray(x) for x in jax_k3(
         qp, qtr, tp, ttr, co_arg, t_L, np.float32(-0.03), local=True,
-        interpret=True)]
+        interpret=True, **jkw)]
     before = viterbi_batch_rows.launches
     qp_t, qtr_t, tp_t, ttr_t, tl_t = _args(qp, qtr, tp, ttr, t_L)
     st, it, jt, btt = viterbi_batch_rows(
         qp_t, qtr_t, tp_t, ttr_t, torch.from_numpy(co) if with_co else None,
-        tl_t, -0.03)
+        tl_t, -0.03, **tkw)
     assert viterbi_batch_rows.launches == before
     np.testing.assert_array_equal(btt.numpy(), btj)
     np.testing.assert_array_equal(it.numpy(), ij)
     np.testing.assert_array_equal(jt.numpy(), jj)
     np.testing.assert_allclose(st.numpy(), sj, rtol=1e-6, atol=1e-4)
+
+
+def test_k3_refuses_dense_ss_off_the_cpu_and_mixed_forms():
+    """On a device tensor K3 takes the SS term as the table only; the
+    dense matrix stays the JAX signature's CPU form."""
+    qp, qtr, tp, ttr, t_L, _co, ss = make_inputs(25, 21, 3, seed=18)
+    lut, qidx, tidx, _dense = _ss_lut_inputs(25, 21, 3, seed=19)
+    args = _t(qp, qtr, tp, ttr, t_L)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="table"):
+        viterbi_batch_rows(*meta[:4], None, meta[4], -0.03,
+                           ss_score=torch.from_numpy(ss).to("meta"))
+    table = dict(ss_lut=torch.from_numpy(lut), ss_qidx=torch.from_numpy(qidx),
+                 ss_tidx=torch.from_numpy(tidx))
+    with pytest.raises(ValueError, match="not both"):
+        viterbi_batch_rows(*args[:4], None, args[4], -0.03,
+                           ss_score=torch.from_numpy(ss), **table)
+    with pytest.raises(ValueError, match="ss_qidx"):
+        viterbi_batch_rows(*args[:4], None, args[4], -0.03,
+                           ss_lut=table["ss_lut"])
 
 
 def test_wrappers_reject_other_devices():
