@@ -14,17 +14,20 @@ and no result line:
    two with decoys (128 + 16,384; 8192 + 1,040,384 = 2^20 entries) and
    two with secondary structure (``tools/benchdb.py:build_ss_db``: the
    128 and 8192 families with ``>ss_pred``/``>ss_conf`` rows); ptxas's
-   registers and spill bytes of each of the eight ``vit_bt_kernel``
-   (K2/K3) instantiations;
+   registers and spill bytes of each wavefront kernel instantiation (the
+   eight of ``vit_bt_kernel``, K2/K3, and the twelve of
+   ``vit_score_kernel``, K1/K6: fast, exact, SS table and dense SS at G
+   = 8, 16, 32);
 1. each kernel against its plain PyTorch version on the card at the
    search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
    with altali masks, global, and with the SS table, K6 with the SS
-   lookup table) bit-identical, with K2/K3's launch geometry (group
-   width G, rows a lane R); K2 and K3 at the wavefront's edge shapes;
-   K6's dense form and its LUT form bit-identical, K6 without SS equal
-   to K1 exact, K6 at edge shapes; the prefilter kernels (K4, K5)
-   int-identical at the path's shape and at edge shapes; times from
-   CUDA events;
+   table) bit-identical, with the launch geometry (group width G, rows a
+   lane R); K1 fast timed at each group width G = 8, 16, 32 at a full
+   sweep chunk (8192 templates) and a partial one (2048); K6's dense
+   form and its table form bit-identical, K6 without SS equal to K1
+   exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the
+   prefilter kernels (K4, K5) int-identical at the path's shape and at
+   edge shapes; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
    the reference's (tests/fixtures); ``hhsearch`` on the golden SS
@@ -34,11 +37,13 @@ and no result line:
    -B 100 -realign_max 100``), the 128-template SS database with the
    SS funnel on (``-Z 30 -B 30 -realign_max 30``), and ``hhblits -n 2``
    on the first 128 templates plus 16,384 decoys, each on the card and
-   on the CPU with the plain versions: the ``.hhr`` files (and
-   ``-oa3m``) must agree apart from Date/Command;
+   on the CPU with the plain versions (the three CPU runs side by side in
+   child processes): the ``.hhr`` files (and ``-oa3m``) must agree apart
+   from Date/Command;
 4. the 8192-template long-tail database, ``hhsearch`` with default
    parameters, cold and warm: wall and host-stage times, hit counts and
-   the Viterbi kernels' launch counts on that run (each must be > 0);
+   the Viterbi kernels' launch counts on that run (each must be > 0); a
+   profiled warm query;
 5. ``hhblits -n 2`` with default parameters on the 2^20-entry database,
    cold and warm: per round the prefilter survivors, templates, hits,
    stage times and the launches of K1-K5 (each must be > 0 over the
@@ -50,12 +55,20 @@ and no result line:
    funnel switched itself off; a profiled warm query, with K3's device
    time.
 
-The last lines are the card (``nvidia-smi``), one JSON object with the
-per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+A profiled warm query (phases 4-6) traces the card's activity alone
+(``torch.profiler``, CUDA activities): device time by kernel and the
+device's busy share; on the same query CUDA events around each launch of
+the sweep kernel (K1/K6) give its device time over exactly the launches
+that the counters count (the phase fails when the two count different
+launches), beside the profiler's reading of the same kernel.  Each
+phase prints its wall seconds.  The last lines are the
+card (``nvidia-smi``), one JSON object with the per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -120,10 +133,12 @@ def card_line() -> str:
 
 # ----------------------------------------------------------- inputs ----
 
-def synth_inputs(Lq, Lt, B, seed, device):
+def synth_inputs(Lq, Lt, B, seed, device, pad_last=False):
     """Seeded profile-like inputs in the search path's layout: query
     (Lq+2, 20)/(Lq+2, 7), templates as (B, Lt+2, 20/7) views of
-    lanes-last storage, true lengths between Lt/2 and Lt."""
+    lanes-last storage, true lengths between Lt/2 and Lt; ``pad_last``:
+    the last template is a lane of padding only (zero profile, -FLT_MAX
+    transitions in every column), as pack_templates pads a batch."""
     from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 
     rng = np.random.default_rng(seed)
@@ -148,6 +163,8 @@ def synth_inputs(Lq, Lt, B, seed, device):
         L = int(t_L[b])
         tp[b, : L + 1] = prof(L + 1)
         ttr[b, : L + 1] = trans(L + 1)
+    if pad_last:
+        tp[-1], ttr[-1] = 0.0, -fmax
     import torch
 
     tp_d, ttr_d, tL_d = to_device_pack(tp, ttr, t_L, device)
@@ -231,16 +248,21 @@ def ptxas_usage(log_text: str) -> dict:
     return out
 
 
-def bt_instantiations(usage: dict) -> dict:
-    """The vit_bt_kernel<HAS_CO, HAS_SS, LOCAL> entries of
-    :func:`ptxas_usage`, keyed "<co,ss,local>"."""
+def wave_instantiations(usage: dict) -> dict:
+    """The wavefront kernels' entries of :func:`ptxas_usage`:
+    vit_bt_kernel<HAS_CO, HAS_SS, LOCAL> (K2/K3) keyed "bt<co,ss,local>"
+    and vit_score_kernel<FAST, SS, G> (K1/K6; SS 0 none, 1 dense, 2
+    table) keyed "score<fast,ss,G>"."""
     import re
 
     out = {}
     for name, u in usage.items():
         m = re.search(r"vit_bt_kernelILb([01])ELb([01])ELb([01])E", name)
         if m:
-            out["<%s,%s,%s>" % m.groups()] = u
+            out["bt<%s,%s,%s>" % m.groups()] = u
+        m = re.search(r"vit_score_kernelILb([01])ELi([0-9])ELi(\d+)E", name)
+        if m:
+            out["score<%s,%s,%s>" % m.groups()] = u
     return dict(sorted(out.items()))
 
 
@@ -260,14 +282,18 @@ def max_abs(a, b) -> float:
 
 # ----------------------------------------------------------- phases ----
 
-def phase1_kernels(dev, bt_usage):
+def phase1_kernels(dev, usage):
     """Kernel vs plain version at the path shapes; returns the per-kernel
-    records (without launch counts).  ``bt_usage``: ptxas registers and
-    spills of each vit_bt_kernel instantiation."""
+    records (without launch counts).  ``usage``: ptxas registers and
+    spills of each wavefront kernel instantiation
+    (:func:`wave_instantiations`)."""
+    import functools
+
     import torch
 
+    from hhsuite_tpu_torch.ops import viterbi_lanes as VL
     from hhsuite_tpu_torch.ops.viterbi_lanes import (
-        bt_geometry, cuda_lib, viterbi_backtrace_lanes,
+        bt_geometry, cuda_lib, score_geometry, viterbi_backtrace_lanes,
         viterbi_score_lanes_fused, viterbi_score_lanes_plain)
     from hhsuite_tpu_torch.ops.viterbi import viterbi_batch
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
@@ -282,7 +308,8 @@ def phase1_kernels(dev, bt_usage):
     # ---- K1 ----
     qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B_K1, SEED, dev)
     needed = LQ * int(tL.sum())
-    k1 = {}
+    geo = score_geometry(B_K1, LQ, LT)
+    k1, plain_out = {}, {}
     for mode in ("fast", "exact"):
         out_k = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL, shift,
                                           si_mode=mode)
@@ -301,12 +328,41 @@ def phase1_kernels(dev, bt_usage):
         ms = cuda_ms(lambda: viterbi_score_lanes_fused(
             qp, qtr, tp, ttr, tL, shift, si_mode=mode), 3)
         k1[mode] = (ms, plain_ms, max_abs(out_k, out_p))
+        plain_out[mode] = out_p
         log(f"phase1 K1 {mode}: B={B_K1} Lq={LQ} Lt={LT} {ms:.3f} ms "
             f"({LQ * LT * B_K1 / ms / 1e6:.1f} GCUPS, "
             f"{viterbi_score_lanes_fused.launches - n0} launches), plain "
-            f"{plain_ms:.1f} ms, bit-identical")
+            f"{plain_ms:.1f} ms, bit-identical; G={geo.G} R={geo.R} "
+            f"passes={geo.passes} smem="
+            f"{cuda_lib().hh_bt_smem_bytes(geo.G, 0)} B")
     bms, bby = bound_ms(needed * OPS_K1["fast"],
                         in_bytes(qp, tp, B_K1) + B_K1 * f32b)
+    # the group widths, each timed at a full SWEEP_BATCH chunk and a
+    # partial one, bit-identical to the plain version at each
+    orig, g_ms = VL.score_geometry, {}
+    try:
+        for B in (B_K1, B_K1 // 4):
+            if B != B_K1:
+                del qp, qtr, tp, ttr, tL
+                qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B, SEED + 6, dev)
+                plain_out["fast"] = viterbi_score_lanes_plain(
+                    qp, qtr, tp, ttr, tL, shift, si_mode="fast")
+            for G in (8, 16, 32):
+                VL.score_geometry = functools.partial(orig, G=G)
+                got = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL, shift)
+                if not bits_equal(got, plain_out["fast"]):
+                    raise AssertionError(f"K1 fast G={G} B={B}: kernel != "
+                                         "plain version")
+                g_ms[f"B={B} G={G}"] = cuda_ms(
+                    lambda: viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL,
+                                                      shift), 3)
+            VL.score_geometry = orig
+            log(f"phase1 K1 fast group widths, B={B} Lq={LQ} Lt={LT}: "
+                + ", ".join(f"G={G} {g_ms[f'B={B} G={G}']:.3f} ms"
+                            for G in (8, 16, 32))
+                + f"; bit-identical; chosen G={score_geometry(B, LQ, LT).G}")
+    finally:
+        VL.score_geometry = orig
     recs["K1"] = dict(
         name="K1 viterbi_score_lanes_fused (si_mode=fast)",
         route="cuda", source="hhsuite_tpu_torch/csrc/viterbi.cu",
@@ -314,8 +370,11 @@ def phase1_kernels(dev, bt_usage):
         max_abs_err=k1["fast"][2], ms=k1["fast"][0],
         plain_ms=k1["fast"][1], bound_ms=bms, bound_by=bby,
         library_ms=None, exact_ms=k1["exact"][0],
-        exact_plain_ms=k1["exact"][1], exact_max_abs_err=k1["exact"][2])
-    del qp, qtr, tp, ttr, tL
+        exact_plain_ms=k1["exact"][1], exact_max_abs_err=k1["exact"][2],
+        G=geo.G, R=geo.R, G_ms=g_ms,
+        ptxas={k: v for k, v in usage.items()
+               if k.startswith(("score<1,0,", "score<0,0,"))})
+    del qp, qtr, tp, ttr, tL, plain_out
 
     def bt_check(tag, kern, plain, B, extra_bytes, ops_cell, tL, reps):
         counters = (viterbi_backtrace_lanes, viterbi_batch_rows)
@@ -363,7 +422,7 @@ def phase1_kernels(dev, bt_usage):
         replaces="hhsuite_tpu/ops/viterbi_lanes.py:646",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=bby, library_ms=None, G=geo.G, R=geo.R,
-        ptxas=bt_usage.get("<0,0,1>"))
+        ptxas=usage.get("bt<0,0,1>"))
     del qp, qtr, tp, ttr, tL
 
     # ---- K3: altali masks at the path's batch; global and SS cases ----
@@ -400,7 +459,8 @@ def phase1_kernels(dev, bt_usage):
         replaces="hhsuite_tpu/ops/viterbi_rows.py:59",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=bby, library_ms=None, G=geo.G, R=geo.R,
-        ptxas={k: v for k, v in bt_usage.items() if k != "<0,0,1>"})
+        ptxas={k: v for k, v in usage.items()
+               if k.startswith("bt<") and k != "bt<0,0,1>"})
     phase1_bt_edges(dev)
     torch.cuda.empty_cache()
     return recs
@@ -420,6 +480,23 @@ def bt_edge_shapes():
     return shapes
 
 
+def score_edge_shapes():
+    """(G, Lq, Lt, B, padded lane) at the K1/K6 wavefront's edges, at
+    each group width G (8 rows a lane): one query row, one pass of G*8
+    rows exactly, a second pass of one row, three passes (2*G*8 + 1
+    rows); one template column; fewer columns than lanes; one template;
+    a block of 256/G templates left partly empty, its last lane padding
+    only; and (G chosen by the kernel's geometry) the funnel's longest
+    query, 512 rows."""
+    shapes = [(None, 512, 60, 12, True)]
+    for G in (8, 16, 32):
+        shapes += [(G, 1, 30, 7, False), (G, 8 * G, 25, 7, True),
+                   (G, 8 * G + 1, 20, 7, False), (G, 16 * G + 1, 20, 5, False),
+                   (G, 40, 1, 9, False), (G, 40, G - 3, 5, False),
+                   (G, 40, 33, 1, False), (G, 37, 24, 256 // G + 3, True)]
+    return shapes
+
+
 def phase1_bt_edges(dev):
     """K2 and K3 (global, cell-off, SS table) against the plain version
     at the wavefront's edges, at each group width G: one query row, a
@@ -434,7 +511,7 @@ def phase1_bt_edges(dev):
                                                viterbi_batch)
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
-    shift, n = -0.03, 0
+    shift, n, t0 = -0.03, 0, time.perf_counter()
     orig = VL.bt_geometry
     try:
         for k, (G, Lq, Lt, B) in enumerate(bt_edge_shapes()):
@@ -472,7 +549,8 @@ def phase1_bt_edges(dev):
     finally:
         VL.bt_geometry = orig
     log(f"phase1 K2/K3 wavefront edges: {n} cases bit-identical (score, "
-        "i2, j2, bt, walk payload) at G = 8, 16, 32 and Lq = 513")
+        "i2, j2, bt, walk payload) at G = 8, 16, 32 and Lq = 513 "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def ss_lut_inputs(Lq, Lt, B, seed, device):
@@ -492,93 +570,130 @@ def ss_lut_inputs(Lq, Lt, B, seed, device):
 
 
 def ss_dense(lut, qidx, tidx):
-    """The dense (B, Lq+1, Lt+1) SS matrix of the LUT form, row 0 and
-    column 0 zero, as a view of lanes-last storage (K6's dense layout),
-    filled one query row at a time."""
+    """The dense (B, Lq+1, Lt+1) SS matrix of the table form, row 0 and
+    column 0 zero, contiguous (the layout K6 reads it in), filled one
+    query row at a time."""
     import torch
 
     B, Lt = tidx.shape
     Lq = qidx.shape[0]
-    out = torch.zeros((Lq + 1, Lt + 1, B), dtype=torch.float32,
+    out = torch.zeros((B, Lq + 1, Lt + 1), dtype=torch.float32,
                       device=lut.device)
-    tT = tidx.T.long()
+    t = tidx.long()
     for i in range(Lq):
-        out[i + 1, 1:] = lut[qidx[i].long() + tT]
-    return out.permute(2, 0, 1)
+        out[:, i + 1, 1:] = lut[qidx[i].long() + t]
+    return out
 
 
-def phase1_k6(dev):
-    """K6 against its plain version at the SS sweep's path shape (LUT
-    form), its dense form, K1 exact, and edge shapes; returns its record
-    (without launch counts)."""
+def phase1_k6(dev, usage):
+    """K6 against its plain version at the SS sweep's path shape (the
+    table form), its dense form against the table form, and K6 without
+    SS against K1 exact; then the K1/K6 wavefront edges.  Returns its
+    record (without launch counts)."""
     import torch
 
     from hhsuite_tpu_torch.ops.viterbi_lanes import (
-        viterbi_score_lanes, viterbi_score_lanes_fused,
+        score_geometry, viterbi_score_lanes, viterbi_score_lanes_fused,
         viterbi_score_lanes_plain)
 
     shift = -0.03
-
-    def check(tag, Lq, Lt, B, seed, timed=False):
-        qp, qtr, tp, ttr, tL = synth_inputs(Lq, Lt, B, seed, dev)
-        lut, qidx, tidx = ss_lut_inputs(Lq, Lt, B, seed + 1, dev)
-        kw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
-        out_k = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out_p = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tL, shift, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if not bits_equal(out_k, out_p):
-            raise AssertionError(f"K6 {tag}: kernel != plain version "
-                                 f"(max |d| {max_abs(out_k, out_p)})")
-        if not torch.isfinite(out_k).all():
-            raise AssertionError(f"K6 {tag}: non-finite scores")
-        dense = ss_dense(lut, qidx, tidx)
-        out_d = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift,
-                                    ss_score=dense)
-        if not bits_equal(out_d, out_k):
-            raise AssertionError(f"K6 {tag}: dense form != LUT form")
-        out_n = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift)
-        out_e = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL, shift,
-                                          si_mode="exact")
-        if not bits_equal(out_n, out_e):
-            raise AssertionError(f"K6 {tag}: no SS != K1 exact")
-        if not timed:
-            log(f"phase1 K6 edge {tag} (Lq={Lq} Lt={Lt} B={B}): "
-                "bit-identical; dense == LUT; no SS == K1 exact")
-            return None
-        n0 = viterbi_score_lanes.launches
-        ms = cuda_ms(lambda: viterbi_score_lanes(qp, qtr, tp, ttr, tL,
-                                                 shift, **kw), 3)
-        dense_ms = cuda_ms(lambda: viterbi_score_lanes(
-            qp, qtr, tp, ttr, tL, shift, ss_score=dense), 2)
-        launches = viterbi_score_lanes.launches - n0
-        needed = Lq * int(tL.sum())
-        nbytes = ((Lq * 27 + B * (Lt + 2) * 27) * 4 + B * 4      # profiles
-                  + (lut.numel() + Lq + B * Lt) * 4 + B * 4)     # SS, out
-        bms, bby = bound_ms(needed * OPS_K6, nbytes)
-        log(f"phase1 K6 LUT: B={B} Lq={Lq} Lt={Lt} {ms:.3f} ms "
-            f"({Lq * Lt * B / ms / 1e6:.1f} GCUPS, {launches} launches), "
-            f"dense {dense_ms:.3f} ms, plain {plain_ms:.1f} ms; "
-            f"bit-identical, dense == LUT, no SS == K1 exact; bound "
-            f"{bms:.3f} ms ({bby})")
-        return dict(
-            name="K6 viterbi_score_lanes (SS lookup table)", route="cuda",
-            source="hhsuite_tpu_torch/csrc/viterbi.cu",
-            replaces="hhsuite_tpu/ops/viterbi_lanes.py:62",
-            max_abs_err=max_abs(out_k, out_p), ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bby, library_ms=None, dense_ms=dense_ms)
-
-    rec = check("path shape", LQ, LT, B_K1, SEED + 20, timed=True)
-    # one partial ROWS strip, a full strip plus one row, two strips plus
-    # one row; one template; one template column
-    for k, (tag, Lq, Lt, B) in enumerate((
-            ("Lq=1", 1, 40, 33), ("Lq=9", 9, 40, 33), ("Lq=17", 17, 50, 65),
-            ("B=1", LQ, LT, 1), ("Lt=1", 25, 1, 40))):
-        check(tag, Lq, Lt, B, SEED + 30 + 2 * k)
+    Lq, Lt, B = LQ, LT, B_K1
+    qp, qtr, tp, ttr, tL = synth_inputs(Lq, Lt, B, SEED + 20, dev)
+    lut, qidx, tidx = ss_lut_inputs(Lq, Lt, B, SEED + 21, dev)
+    kw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+    out_k = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tL, shift, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not bits_equal(out_k, out_p):
+        raise AssertionError(f"K6: kernel != plain version "
+                             f"(max |d| {max_abs(out_k, out_p)})")
+    if not torch.isfinite(out_k).all():
+        raise AssertionError("K6: non-finite scores")
+    dense = ss_dense(lut, qidx, tidx)
+    out_d = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift, ss_score=dense)
+    if not bits_equal(out_d, out_k):
+        raise AssertionError("K6: dense form != table form")
+    out_n = viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift)
+    out_e = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tL, shift,
+                                      si_mode="exact")
+    if not bits_equal(out_n, out_e):
+        raise AssertionError("K6: no SS != K1 exact")
+    n0 = viterbi_score_lanes.launches
+    ms = cuda_ms(lambda: viterbi_score_lanes(qp, qtr, tp, ttr, tL, shift,
+                                             **kw), 3)
+    launches = viterbi_score_lanes.launches - n0
+    dense_ms = cuda_ms(lambda: viterbi_score_lanes(
+        qp, qtr, tp, ttr, tL, shift, ss_score=dense), 2)
+    del dense, out_d
+    needed = Lq * int(tL.sum())
+    nbytes = ((Lq * 27 + B * (Lt + 2) * 27) * 4 + B * 4      # profiles
+              + (lut.numel() + Lq + B * Lt) * 4 + B * 4)     # SS, out
+    bms, bby = bound_ms(needed * OPS_K6, nbytes)
+    geo = score_geometry(B, Lq, Lt)
+    log(f"phase1 K6 table: B={B} Lq={Lq} Lt={Lt} {ms:.3f} ms "
+        f"({Lq * Lt * B / ms / 1e6:.1f} GCUPS, {launches} launches), "
+        f"dense {dense_ms:.3f} ms, plain {plain_ms:.1f} ms; bit-identical, "
+        f"dense == table, no SS == K1 exact; G={geo.G} "
+        f"passes={geo.passes}; bound {bms:.3f} ms ({bby})")
+    rec = dict(
+        name="K6 viterbi_score_lanes (SS lookup table)", route="cuda",
+        source="hhsuite_tpu_torch/csrc/viterbi.cu",
+        replaces="hhsuite_tpu/ops/viterbi_lanes.py:62",
+        max_abs_err=max_abs(out_k, out_p), ms=ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=bby, library_ms=None, dense_ms=dense_ms,
+        G=geo.G, R=geo.R,
+        ptxas={k: v for k, v in usage.items()
+               if k.startswith(("score<0,1,", "score<0,2,"))})
+    del qp, qtr, tp, ttr, tL, lut, qidx, tidx
+    phase1_score_edges(dev)
     torch.cuda.empty_cache()
     return rec
+
+
+def phase1_score_edges(dev):
+    """K1 (fast, exact) and K6 (SS table, dense SS; without SS == K1
+    exact) against the plain version at the score wavefront's edges
+    (:func:`score_edge_shapes`), bit for bit: the dense form against the
+    table's plain result on the matrix the table defines."""
+    import functools
+
+    from hhsuite_tpu_torch.ops import viterbi_lanes as VL
+
+    shift, n, t0 = -0.03, 0, time.perf_counter()
+    orig = VL.score_geometry
+    try:
+        for k, (G, Lq, Lt, B, pad) in enumerate(score_edge_shapes()):
+            VL.score_geometry = functools.partial(orig, G=G)
+            qp, qtr, tp, ttr, tL = synth_inputs(Lq, Lt, B, SEED + 80 + k,
+                                                dev, pad_last=pad)
+            lut, qidx, tidx = ss_lut_inputs(Lq, Lt, B, SEED + 81 + k, dev)
+            table = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
+            args = (qp, qtr, tp, ttr, tL, shift)
+            want = {mode: VL.viterbi_score_lanes_plain(*args, si_mode=mode)
+                    for mode in ("fast", "exact")}
+            want["table"] = VL.viterbi_score_lanes_plain(*args, **table)
+            got = {mode: VL.viterbi_score_lanes_fused(*args, si_mode=mode)
+                   for mode in ("fast", "exact")}
+            got["table"] = VL.viterbi_score_lanes(*args, **table)
+            got["dense"] = VL.viterbi_score_lanes(
+                *args, ss_score=ss_dense(lut, qidx, tidx))
+            want["dense"] = want["table"]
+            got["no SS"] = VL.viterbi_score_lanes(*args)
+            want["no SS"] = got["exact"]
+            for tag in got:
+                if not bits_equal(got[tag], want[tag]):
+                    raise AssertionError(f"K1/K6 {tag} edge G={G} Lq={Lq} "
+                                         f"Lt={Lt} B={B}: kernel != plain "
+                                         "version")
+                n += 1
+    finally:
+        VL.score_geometry = orig
+    log(f"phase1 K1/K6 wavefront edges: {n} cases bit-identical (K1 fast, "
+        "K1 exact, K6 table, K6 dense; K6 without SS == K1 exact) at G = "
+        f"8, 16, 32 and Lq = 512 ({time.perf_counter() - t0:.1f} s)")
 
 
 def long_tail_lengths(rng, n, L0=300):
@@ -795,92 +910,94 @@ def _hhr_body(path):
                 if not ln.startswith(("Date", "Command"))]
 
 
-def phase3_card_vs_cpu(work, tag, base, query, counters, cap, sweep):
-    """hhsearch -Z/-B/-realign_max ``cap`` through the CLI on the card
-    (the funnel on: ``sweep``, the sweep kernel, must launch) and on the
-    CPU: the .hhr files must agree apart from Date/Command."""
+CPU_RUN = """
+import sys, time
+sys.path.insert(0, {repo!r})
+from hhsuite_tpu_torch.cli import main
+t0 = time.perf_counter()
+rc = main(sys.argv[1:])
+print(f"CPU_SECONDS {{time.perf_counter() - t0:.2f}}", flush=True)
+sys.exit(rc)
+"""
+
+
+def start_cpu_run(args):
+    """One CLI run on the CPU (the plain versions) in a child process,
+    with a third of the host's cores for its torch threads, so that
+    phase 3's three CPU runs go side by side."""
+    from hhsuite_tpu_torch.device import DEVICE_ENV
+
+    threads = str(max(1, (os.cpu_count() or 3) // 3))
+    env = dict(os.environ, **{DEVICE_ENV: "cpu", "OMP_NUM_THREADS": threads})
+    return subprocess.Popen(
+        [sys.executable, "-c", CPU_RUN.format(repo=REPO)] + args, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_cpu_run(proc, tag) -> float:
+    """Wait for :func:`start_cpu_run`'s child; returns its seconds."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase3 {tag}: CPU run exit {proc.returncode}"
+                             f":\n{out[-3000:]}")
+    return float(out.rsplit("CPU_SECONDS ", 1)[1].split()[0])
+
+
+def phase3_card_vs_cpu(work, runs, counters):
+    """Each of ``runs`` — (tag, CLI arguments, kernel that must launch,
+    output flags) — through the CLI on the card and on the CPU (the
+    plain versions; the CPU runs side by side in child processes,
+    started first): the .hhr files (and -oa3m) must agree apart from
+    Date/Command."""
     from hhsuite_tpu_torch import profiling
     from hhsuite_tpu_torch.cli import main as cli_main
-    from hhsuite_tpu_torch.device import DEVICE_ENV
 
-    args = ["hhsearch", "-i", query, "-d", base, "-Z", cap, "-B", cap,
-            "-realign_max", cap]
-    out = {k: os.path.join(work, f"p3_{tag.split()[0]}_{k}.hhr")
-           for k in ("card", "cpu")}
-    timers = profiling.enable_stage_timers()
-    reset(counters)
-    t0 = time.perf_counter()
-    try:
-        if cli_main(args + ["-o", out["card"]]) != 0:
-            raise AssertionError(f"phase3 {tag}: card run failed")
-    finally:
-        profiling.disable_stage_timers()
-    t_card = time.perf_counter() - t0
-    n = read(counters)
-    funnel = (int(timers.get("funnel_blocks", 0)),
-              int(timers.get("funnel_dropped", 0)))
-    if n[sweep] == 0:
-        raise AssertionError(f"phase3 {tag}: the funnel did not run ({n})")
-    os.environ[DEVICE_ENV] = "cpu"
-    try:
+    def outs(tag, flags, side):
+        name = f"p3_{[r[0] for r in runs].index(tag)}_{side}"
+        return [x for f in flags for x in
+                (f, os.path.join(work, name + (".a3m" if f == "-oa3m"
+                                               else ".hhr")))]
+
+    procs = {tag: start_cpu_run(args + outs(tag, flags, "cpu"))
+             for tag, args, _kern, flags in runs}
+    card = {}
+    for tag, args, kern, flags in runs:
+        timers = profiling.enable_stage_timers()
+        reset(counters)
         t0 = time.perf_counter()
-        if cli_main(args + ["-o", out["cpu"]]) != 0:
-            raise AssertionError(f"phase3 {tag}: CPU run failed")
-        t_cpu = time.perf_counter() - t0
-    finally:
-        os.environ.pop(DEVICE_ENV, None)
-    a, b = _hhr_body(out["card"]), _hhr_body(out["cpu"])
-    if a != b:
-        diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
-        raise AssertionError(f"phase3 {tag}: card and CPU .hhr differ: "
-                             f"{diff}")
-    log(f"phase3 {tag}: card (funnel blocks {funnel[0]}, switched off "
-        f"{funnel[1]}; launches {n}) {t_card:.2f} s, CPU (plain versions) "
-        f"{t_cpu:.2f} s, .hhr identical ({len(a)} lines)")
-
-
-def phase3_hhblits(work, base, query, counters):
-    """hhblits -n 2 through the CLI on the card and on the CPU: .hhr and
-    -oa3m identical; K4 and K5 launched on the card run."""
-    from hhsuite_tpu_torch.cli import main as cli_main
-    from hhsuite_tpu_torch.device import DEVICE_ENV
-
-    def run(tag):
-        t0 = time.perf_counter()
-        rc = cli_main(["hhblits", "-i", query, "-d", base, "-n", "2",
-                       "-o", os.path.join(work, f"p3b_{tag}.hhr"),
-                       "-oa3m", os.path.join(work, f"p3b_{tag}.a3m")])
-        if rc != 0:
-            raise AssertionError(f"phase3: hhblits {tag} run exit {rc}")
-        return time.perf_counter() - t0
-
-    reset(counters)
-    t_card = run("card")
-    n = read(counters)
-    if n["K4"] == 0 or n["K5"] == 0:
-        raise AssertionError(f"phase3: the prefilter kernels did not run "
-                             f"({n})")
-    os.environ[DEVICE_ENV] = "cpu"
-    try:
-        t_cpu = run("cpu")
-    finally:
-        os.environ.pop(DEVICE_ENV, None)
-    a = _hhr_body(os.path.join(work, "p3b_card.hhr"))
-    b = _hhr_body(os.path.join(work, "p3b_cpu.hhr"))
-    if a != b:
-        diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
-        raise AssertionError(f"phase3: hhblits card and CPU .hhr differ: "
-                             f"{diff}")
-    with open(os.path.join(work, "p3b_card.a3m")) as f:
-        a3m = f.read()
-    with open(os.path.join(work, "p3b_cpu.a3m")) as f:
-        if a3m != f.read():
-            raise AssertionError("phase3: hhblits card and CPU -oa3m differ")
-    log(f"phase3 hhblits -n 2, {N_FAMILY_SMALL} templates + "
-        f"{N_DECOYS_SMALL} decoys: card "
-        f"(launches {n}) {t_card:.2f} s, CPU (plain versions) {t_cpu:.2f} s, "
-        f".hhr identical ({len(a)} lines), -oa3m identical "
-        f"({a3m.count(chr(62))} sequences)")
+        try:
+            if cli_main(args + outs(tag, flags, "card")) != 0:
+                raise AssertionError(f"phase3 {tag}: card run failed")
+        finally:
+            profiling.disable_stage_timers()
+        n = read(counters)
+        if any(n[k] == 0 for k in kern):
+            raise AssertionError(f"phase3 {tag}: {kern} did not launch ({n})")
+        card[tag] = (time.perf_counter() - t0, n,
+                     int(timers.get("funnel_blocks", 0)),
+                     int(timers.get("funnel_dropped", 0)))
+    for tag, _args, _kern, flags in runs:
+        t_cpu = finish_cpu_run(procs[tag], tag)
+        got = dict(zip(flags, outs(tag, flags, "card")[1::2]))
+        want = dict(zip(flags, outs(tag, flags, "cpu")[1::2]))
+        a, b = _hhr_body(got["-o"]), _hhr_body(want["-o"])
+        if a != b:
+            diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
+            raise AssertionError(f"phase3 {tag}: card and CPU .hhr differ: "
+                                 f"{diff}")
+        same = f".hhr identical ({len(a)} lines)"
+        if "-oa3m" in flags:
+            with open(got["-oa3m"]) as f:
+                a3m = f.read()
+            with open(want["-oa3m"]) as f:
+                if a3m != f.read():
+                    raise AssertionError(f"phase3 {tag}: card and CPU -oa3m "
+                                         "differ")
+            same += f", -oa3m identical ({a3m.count(chr(62))} sequences)"
+        t_card, n, blocks, dropped = card[tag]
+        log(f"phase3 {tag}: card (funnel blocks {blocks}, switched off "
+            f"{dropped}; launches {n}) {t_card:.2f} s, CPU (plain versions) "
+            f"{t_cpu:.2f} s, {same}")
 
 
 def phase4_full(base, query_text, counters):
@@ -929,7 +1046,7 @@ def phase4_full(base, query_text, counters):
         last = [(h.entry, h.irep, h.score) for h in hits]
     profile_query("phase4", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query"),
-        set(timers))
+        counters)
     return n
 
 
@@ -1062,7 +1179,7 @@ def phase5_hhblits(base, query_text, counters, dev):
     torch.cuda.empty_cache()
     profile_query("phase5", lambda: run_hhblits(
         Parameters.hhblits_defaults(), query_text, db, "bench_query"),
-        set(timers))
+        counters)
     return launches
 
 
@@ -1120,43 +1237,106 @@ def phase6_ss(base, query_text, counters):
         last = now
     by_name = profile_query("phase6", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query_ss"),
-        set(timers))
+        counters)
     k3 = [v for name, v in by_name.items() if "vit_bt_kernel" in name]
     log(f"phase6 K3 device time: {sum(us for us, _n in k3) / 1e3:.2f} ms "
         f"over {sum(n for _us, n in k3)} launches (profiled warm query)")
     return n
 
 
-def profile_query(tag, run, spans):
-    """One more warm query under torch.profiler: device time by kernel
-    (device activities only; the ``spans`` annotation ranges are left
-    out) and the device's busy share of the profiled wall time.  Returns
-    {kernel name: (microseconds, launches)}."""
+@contextlib.contextmanager
+def sweep_events():
+    """CUDA events around each launch of the score-sweep kernel (K1/K6),
+    by the launch code's library with ``hh_vit_score`` wrapped; yields
+    the list of (host seconds, start event, end event), one a launch."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import viterbi_lanes as VL
+
+    lib, launches = VL.cuda_lib(), []
+
+    class Timed:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def hh_vit_score(self, *args):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            rc = lib.hh_vit_score(*args)
+            e1.record()
+            launches.append((time.perf_counter(), e0, e1))
+            return rc
+
+    orig, VL.cuda_lib = VL.cuda_lib, Timed
+    try:
+        yield launches
+    finally:
+        VL.cuda_lib = orig
+
+
+def profile_query(tag, run, counters):
+    """One more warm query under torch.profiler, tracing the card's
+    activity alone: device time by kernel and the device's busy share,
+    read from the raw trace (torch's event tree over ~10^5 kernels took
+    tens of seconds to build).  On the same query the launch counters,
+    and CUDA events around each sweep launch (:func:`sweep_events`): the
+    sweep's device time over exactly the launches the counters count (K1
+    + K6), beside the profiler's reading of the same kernel; fails when
+    the events' count and the counters' disagree.  Returns {kernel name:
+    (microseconds, launches)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    reset(counters)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with sweep_events() as launches, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if (e.device_type != DeviceType.CUDA or e.name in spans
-                or getattr(e, "is_user_annotation", False)):
+        wall = time.perf_counter() - t0
+    n = read(counters)
+    trace = prof.profiler.kineto_results
+    by_name, first = {}, {}
+    for ev in trace.events():
+        if (ev.device_type() != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", lambda: False)()):
             continue
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        us, k = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (us + ev.duration_ns() / 1e3, k + 1)
+        t = ev.start_ns()
+        first["any"] = min(first.get("any", t), t)
+        if "vit_score_kernel" in ev.name():
+            first["sweep"] = min(first.get("sweep", t), t)
     busy = sum(us for us, _n in by_name.values()) / 1e6
     log(f"{tag} profiled: {wall:.3f} s wall (profiler on), device busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), "
-        f"{sum(n for _us, n in by_name.values())} device activities")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+        f"{sum(k for _us, k in by_name.values())} device activities, "
+        f"launches {n}")
+    for name, (us, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:10]:
-        log(f"{tag} device: {us / 1e3:10.2f} ms {n:7d} x {name[:70]}")
+        log(f"{tag} device: {us / 1e3:10.2f} ms {k:7d} x {name[:70]}")
+    ev_ms = [e0.elapsed_time(e1) for _t, e0, e1 in launches]
+    sweep = [v for name, v in by_name.items() if "vit_score_kernel" in name]
+    p_us, p_n = sum(us for us, _k in sweep), sum(k for _us, k in sweep)
+    log(f"{tag} sweep (K1/K6) device time: {sum(ev_ms):.3f} ms over "
+        f"{len(ev_ms)} launches (CUDA events; counters K1 {n['K1']}, K6 "
+        f"{n['K6']}): " + " ".join(f"{ms:.3f}" for ms in ev_ms)
+        + f"; profiler {p_us / 1e3:.3f} ms over {p_n} launches")
+    if len(ev_ms) != n["K1"] + n["K6"]:
+        raise AssertionError(f"{tag}: {len(ev_ms)} timed sweep launches, "
+                             f"counters {n}")
+    if p_n != len(ev_ms):
+        into = {k: f"{(v - trace.trace_start_ns()) / 1e9:.3f} s"
+                for k, v in first.items()}
+        log(f"{tag} the profiler recorded {p_n} of {len(ev_ms)} sweep "
+            "launches: they left the host at "
+            + ", ".join(f"{t - t0:.3f}" for t, _e0, _e1 in launches)
+            + " s into the query; the trace's first device activity "
+            f"{into.get('any', 'none')}, its first sweep kernel "
+            f"{into.get('sweep', 'none')} into it")
     return by_name
 
 
@@ -1184,6 +1364,52 @@ def read(counters):
 
 
 # ------------------------------------------------------------- main ----
+
+def phase0_builds() -> dict:
+    """Build the CUDA kernels (in parallel) and the native host library;
+    print ptxas's registers and spills of every wavefront kernel
+    instantiation: the eight of vit_bt_kernel (K2/K3) and the twelve of
+    vit_score_kernel (K1/K6: fast, exact, dense SS, SS table at G = 8,
+    16, 32).  Returns :func:`wave_instantiations` of the viterbi build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hhsuite_tpu_torch import native
+    from hhsuite_tpu_torch.device import cuda_library
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        f_cu = {name: ex.submit(cuda_library, name)
+                for name in ("viterbi", "prefilter")}
+        f_nat = ex.submit(native.require)
+        infos = {name: f.result()[1] for name, f in f_cu.items()}
+        f_nat.result()
+    log(f"phase0 build: {time.perf_counter() - t0:.1f} s (nvcc "
+        + ", ".join(f"{n}.cu {i.seconds:.1f} s cached={i.cached}"
+                    for n, i in infos.items())
+        + "); native host library loaded")
+    for ln in infos["prefilter"].log.splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            log("phase0 ptxas prefilter: " + ln.strip())
+    usage = wave_instantiations(ptxas_usage(infos["viterbi"].log))
+    for key, (regs, st, ld) in usage.items():
+        log(f"phase0 {key}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    n_bt = sum(k.startswith("bt<") for k in usage)
+    n_score = sum(k.startswith("score<") for k in usage)
+    if (n_bt, n_score) != (8, 12):
+        raise AssertionError(f"phase0: ptxas reported {n_bt} vit_bt_kernel "
+                             f"and {n_score} vit_score_kernel "
+                             "instantiations, not 8 and 12")
+    return usage
+
+
+def phase_ok(n: int, t0: float) -> float:
+    """Say that phase ``n`` passed and its wall seconds since ``t0``;
+    returns the time now."""
+    now = time.perf_counter()
+    log(f"phase{n} ok ({now - t0:.1f} s)")
+    return now
+
 
 DB_BUILD = """
 import sys, time
@@ -1242,7 +1468,7 @@ def main() -> int:
     base_big = os.path.join(CACHE, f"bench8192mix_decoys_{N_ENTRIES_BIG}")
     base_ss_small = os.path.join(CACHE, f"bench{N_FAMILY_SMALL}_ss")
     base_ss8k = os.path.join(CACHE, "bench8192mix_ss")
-    t_db = time.perf_counter()
+    t_db = t_start = time.perf_counter()
     db_proc = subprocess.Popen(
         [sys.executable, "-c", DB_BUILD.format(
             repo=REPO, nfam=N_FAMILY_SMALL, ndec=N_DECOYS_SMALL,
@@ -1256,44 +1482,22 @@ def main() -> int:
         log(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"device {torch.cuda.get_device_name(0)}")
 
-        # ---- phase 0: builds ----
-        from concurrent.futures import ThreadPoolExecutor
+        from hhsuite_tpu_torch.device import resolve_device
 
-        from hhsuite_tpu_torch import native
-        from hhsuite_tpu_torch.device import cuda_library, resolve_device
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as ex:
-            f_cu = {name: ex.submit(cuda_library, name)
-                    for name in ("viterbi", "prefilter")}
-            f_nat = ex.submit(native.require)
-            infos = {name: f.result()[1] for name, f in f_cu.items()}
-            f_nat.result()
-        log(f"phase0 build: {time.perf_counter() - t0:.1f} s (nvcc "
-            + ", ".join(f"{n}.cu {i.seconds:.1f} s cached={i.cached}"
-                        for n, i in infos.items())
-            + "); native host library loaded")
-        for name, info in infos.items():
-            for ln in info.log.splitlines():
-                if "registers" in ln or "spill" in ln or "Compiling" in ln:
-                    log(f"phase0 ptxas {name}: " + ln.strip())
-        bt_usage = bt_instantiations(ptxas_usage(infos["viterbi"].log))
-        for key, (regs, st, ld) in bt_usage.items():
-            log(f"phase0 vit_bt_kernel{key} (co, ss, local): {regs} "
-                f"registers, {st} bytes spill stores, {ld} bytes spill "
-                "loads")
-        if len(bt_usage) != 8:
-            raise AssertionError(f"phase0: ptxas reported {len(bt_usage)} "
-                                 "vit_bt_kernel instantiations, not 8")
+        t_phase = time.perf_counter()
+        usage = phase0_builds()
+        t_phase = phase_ok(0, t_phase)
         dev = resolve_device("cuda")
 
-        recs = phase1_kernels(dev, bt_usage)
-        recs["K6"] = phase1_k6(dev)
+        recs = phase1_kernels(dev, usage)
+        recs["K6"] = phase1_k6(dev, usage)
+        t_pf = time.perf_counter()
         recs.update(phase1_prefilter(dev))
-        log("phase1 ok")
+        log(f"phase1 K4/K5: {time.perf_counter() - t_pf:.1f} s")
+        t_phase = phase_ok(1, t_phase)
         phase2_golden(work)
         phase2_golden_ss(work)
-        log("phase2 ok")
+        t_phase = phase_ok(2, t_phase)
 
         out, _ = db_proc.communicate(timeout=900)
         if db_proc.returncode != 0:
@@ -1301,24 +1505,31 @@ def main() -> int:
         for ln in out.splitlines():
             log("database build: " + ln)
         log(f"databases ready after {time.perf_counter() - t_db:.1f} s")
+        t_phase = time.perf_counter()
         counters = kernel_counters()
-        phase3_card_vs_cpu(work, "512 templates", base512,
-                           base512 + ".query.a3m", counters, "100", "K1")
-        phase3_card_vs_cpu(work, f"{N_FAMILY_SMALL} SS templates",
-                           base_ss_small, base_ss_small + ".query.a3m",
-                           counters, "30", "K6")
-        phase3_hhblits(work, base_small_d, base_small + ".query.a3m",
-                       counters)
-        log("phase3 ok")
+
+        def hhsearch(base, cap):
+            return ["hhsearch", "-i", base + ".query.a3m", "-d", base, "-Z",
+                    cap, "-B", cap, "-realign_max", cap]
+
+        phase3_card_vs_cpu(work, [
+            ("512 templates", hhsearch(base512, "100"), ("K1",), ("-o",)),
+            (f"{N_FAMILY_SMALL} SS templates", hhsearch(base_ss_small, "30"),
+             ("K6",), ("-o",)),
+            (f"hhblits -n 2, {N_FAMILY_SMALL} templates + {N_DECOYS_SMALL} "
+             "decoys", ["hhblits", "-i", base_small + ".query.a3m", "-d",
+                        base_small_d, "-n", "2"], ("K4", "K5"),
+             ("-o", "-oa3m"))], counters)
+        t_phase = phase_ok(3, t_phase)
         with open(base8k + ".query.a3m") as f:
             q8k = f.read()
         launches = phase4_full(base8k, q8k, counters)
-        log("phase4 ok")
+        t_phase = phase_ok(4, t_phase)
         launches_blits = phase5_hhblits(base_big, q8k, counters, dev)
-        log("phase5 ok")
+        t_phase = phase_ok(5, t_phase)
         with open(base_ss8k + ".query.a3m") as f:
             launches_ss = phase6_ss(base_ss8k, f.read(), counters)
-        log("phase6 ok")
+        phase_ok(6, t_phase)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1341,6 +1552,7 @@ def main() -> int:
         r["launches_hhblits"] = launches_blits[key]
         r["launches_ss"] = launches_ss[key]
         kernels.append(r)
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

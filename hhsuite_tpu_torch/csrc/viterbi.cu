@@ -3,7 +3,7 @@
 // Replaces four Pallas TPU kernels of the JAX package:
 //   K1  hhsuite_tpu/ops/viterbi_lanes.py : viterbi_score_lanes_fused
 //       (score-only sweep, profile dot and log2 fused; si_mode fast|exact)
-//       -> vit_score_kernel / hh_vit_score
+//       -> vit_score_kernel<FAST, SS_NONE, G> / hh_vit_score
 //   K2  hhsuite_tpu/ops/viterbi_lanes.py : viterbi_backtrace_lanes
 //       (full local Viterbi with backtrace bytes, no cell-off, no SS)
 //       -> vit_bt_kernel<false, false, true> / hh_vit_bt
@@ -14,7 +14,7 @@
 //   K6  hhsuite_tpu/ops/viterbi_lanes.py : viterbi_score_lanes
 //       (score-only sweep, Si = log2f4(dot) + shift + a secondary-
 //       structure term, dense or through a lookup table; f32 Si only)
-//       -> vit_score_kernel<false, SS_DENSE | SS_LUT> / hh_vit_score
+//       -> vit_score_kernel<false, SS_DENSE | SS_LUT, G> / hh_vit_score
 //
 // Exactness.  Every cell evaluates the same f32 expressions, in the same
 // order, as the plain PyTorch versions beside the wrappers
@@ -34,41 +34,58 @@
 // is the card's f32 instruction rate, 132 SMs x 128 lanes x 1.98 GHz =
 // 33.5e12/s (the published 67 TFLOP/s counts an FMA as two).  K2/K3
 // write one backtrace byte a cell (K3 reads one cell-off byte): ~1-2
-// B/cell against 3.35 TB/s, so the work is instruction-bound.
+// B/cell against 3.35 TB/s, so the work is instruction-bound; K1/K6 move
+// only the profiles (~0.4 B a cell at Lq = 320; K6's dense SS matrix 4 B
+// a cell).
 //
-// K2/K3 design: a warp-wide wavefront per template.  A group of G lanes
-// (G = 8, 16 or 32, chosen per launch by ops/viterbi_lanes.py:
-// bt_geometry) owns one template; lane k holds BT_R = 8 consecutive query
-// rows of a pass of G x BT_R rows, their five states in registers.  At
-// step s lane k computes template column j = s - k + 1: the row above
-// its strip (lane k-1's last row at column j) and the diagonal (the same
-// at column j-1, kept from the step before) arrive by __shfl_up_sync;
-// lane 0 takes the pass boundary: row 0, or the previous pass's last row,
-// which lane G-1 left in a per-template scratch row [Lt+1][5] (an L2
-// round trip of 5 floats a column per pass).  Fill and drain cost G-1
-// steps a pass.  A block of 256 threads holds 256/G templates, so B =
-// 1024 templates at G = 32 fill 8 warps on each of 128 SMs.  The pass's
-// query rows (profile, the transitions a cell reads, K3's SS table
-// offset: 28 floats a row) sit in shared memory, each lane's 8 rows at a
-// stride of 228 words, so that the lanes of a warp read distinct banks.
-// Template columns (tp [Lt+2][20][B], ttr [Lt+2][7][B], K3's SS offsets
-// tidx [Lt][B]: the resident pack's lanes-last layout, coalesced along b)
-// are staged by cp.async in chunks of G columns into a ring of three
-// chunks: chunk m+1 loads while the block computes chunk m, and chunk
-// m-1 stays for the lanes behind (lane k reads column s - k + 1).  The
-// ring's column stride is padded so the G lanes of a group, each on its
-// own column, hit distinct banks.  K3's SS table (<= 1,936 floats) sits
-// in shared memory as in K6.  Backtrace bytes and the cell-off mask are
-// laid out [B][Lt+1][Wq], row i at byte BT_ROW0 + i of a column, Wq =
-// Lq + 8 rounded up to 16: a lane writes its 8 bytes of a column with
-// one 8-byte store and reads its 8 cell-off bytes with one load.  The
-// group's best cell is reduced by __shfl_xor_sync under the same key.
+// Design, all four: a warp-wide wavefront per template (wave_sweep).  A
+// group of G lanes (G = 8, 16 or 32, chosen per launch by
+// ops/viterbi_lanes.py: bt_geometry for K2/K3, score_geometry for K1/K6)
+// owns one template; lane k holds BT_R = 8 consecutive query rows of a
+// pass of G x BT_R rows, their five states in registers.  At step s lane
+// k computes template column j = s - k + 1: the row above its strip
+// (lane k-1's last row at column j) and the diagonal (the same at column
+// j-1, kept from the step before) arrive by __shfl_up_sync; lane 0 takes
+// the pass boundary: row 0, or the previous pass's last row, which lane
+// G-1 left in a per-template scratch row [Lt+1][5] (an L2 round trip of
+// 5 floats a column per pass).  Fill and drain cost G-1 steps a pass.  A
+// block of 256 threads holds 256/G templates, so B = 1024 templates at G
+// = 32 fill 8 warps on each of 128 SMs.  The pass's query rows (profile,
+// the transitions a cell reads, the SS table offset: 28 floats a row)
+// sit in shared memory, each lane's 8 rows at a stride of 228 words, so
+// that the lanes of a warp read distinct banks.  Template columns (tp
+// [Lt+2][20][B], ttr [Lt+2][7][B], the SS offsets tidx [Lt][B]: the
+// resident pack's lanes-last layout, coalesced along b) are staged by
+// cp.async in chunks of G columns into a ring of three chunks: chunk m+1
+// loads while the block computes chunk m, and chunk m-1 stays for the
+// lanes behind (lane k reads column s - k + 1).  The ring's column stride
+// is padded so the G lanes of a group, each on its own column, hit
+// distinct banks.  The SS table (<= 1,936 floats) sits in shared memory.
 //
-// What is left.  K1/K6 still run one template per thread in strips of
-// ROWS rows (1-2 warps per SM at B = 8192, and ptxas spills); the
-// wavefront above is their next step.  The query rows are read from
-// shared memory once per cell (7 16-byte loads), which with G = 32 (no
-// broadcast between groups) may share the bound with the f32 rate.
+// What differs between the kernels is the cell and what is kept.  K2/K3
+// (vit_bt_kernel): the boundary -j*pt on row 0 and -i*pq on column 0,
+// viterbi_batch's five-candidate code chain, the backtrace bytes and the
+// cell-off mask laid out [B][Lt+1][Wq], row i at byte BT_ROW0 + i of a
+// column, Wq = Lq + 8 rounded up to 16 (a lane writes its 8 bytes of a
+// column with one 8-byte store and reads its 8 cell-off bytes with one
+// load), and the best cell, reduced by __shfl_xor_sync under the (score,
+// i, j) key.  K1/K6 (vit_score_kernel): MM +0 on row 0 and column 0, K1's
+// two max trees, the fast or exact log2, no stores but the group's
+// maximum (__shfl_xor_sync); K6's dense SS matrix is read where the
+// caller has it, (B, Lq+1, Lt+1) row-major, one load a cell (no speed is
+// asked of it: the search passes the table).  The score kernel takes G
+// as a template parameter: the ring's modulo, the block's template count
+// and the column stride become constants.
+//
+// What is left.  A K1/K6 thread holds ~145 registers (40 states, the
+// 20-float template column, a query row in flight), so a block of 256
+// threads has its SM alone (8 warps).  K1/K6 run at about a quarter of
+// the f32 rate (PERF.md); with two warps on each scheduler and each cell
+// a dependent chain of f32 operations, issue latency is the likely limit
+// (no counter of the card's pipelines is read here); each cell also
+// reads its query row from shared memory (7 16-byte loads, no broadcast
+// between groups at G = 32).  Queries longer than G x 8 rows pay G-1
+// fill and drain steps and the scratch round trip a pass.
 
 #include <cfloat>
 #include <cstddef>
@@ -79,14 +96,12 @@ namespace {
 
 constexpr int M2M = 0, M2I = 1, M2D = 2, I2M = 3, I2I = 4, D2M = 5, D2D = 6;
 constexpr int STOP = 0, MM = 2, GD = 3, IM = 4, DG = 5, MI = 6;
-constexpr int ROWS = 8;      // query rows per strip, register-resident
-constexpr int THREADS = 32;  // templates per block: spread over all SMs
 constexpr float NEG = -FLT_MAX;
-// K6's SS term: none, dense [Lq+1][Lt+1][B], or lut[qidx[i-1] + tidx[j-1]]
+// the SS term: none, dense ss[b][i][j], or lut[qidx[i-1] + tidx[j-1][b]]
 constexpr int SS_NONE = 0, SS_DENSE = 1, SS_LUT = 2;
 constexpr int SS_LUT_MAX = 4 * 11 * 4 * 11;  // S33: NSSPRED x MAXCF squared
 
-// K2/K3 wavefront (see the design note above; ops/viterbi_lanes.py
+// the wavefront (see the design note above; ops/viterbi_lanes.py
 // mirrors BT_THREADS and BT_R, ops/viterbi.py BT_ROW0 and bt_col_bytes)
 constexpr int BT_THREADS = 256;  // threads per block: 256 / G templates
 constexpr int BT_R = 8;          // query rows per lane
@@ -161,153 +176,6 @@ __device__ __forceinline__ float log2_quartic(float x, float sh) {
                    __fadd_rn(y0, sh));
 }
 
-// Stage the query rows i0..i0+ROWS-1 (profile, and K6's SS table
-// offsets when qidx is given) and i0-1..i0+ROWS-1 (transitions) of a
-// strip in shared memory.
-__device__ __forceinline__ void load_strip(const float* __restrict__ qp,
-                                           const float* __restrict__ qtr,
-                                           int i0, int nr,
-                                           float (*s_qp)[20],
-                                           float (*s_qtr)[7],
-                                           const int* __restrict__ qidx =
-                                               nullptr,
-                                           int* s_qidx = nullptr) {
-  __syncthreads();
-  for (int k = threadIdx.x; k < ROWS * 20; k += blockDim.x) {
-    const int r = k / 20, a = k % 20;
-    s_qp[r][a] = r < nr ? qp[(size_t)(i0 + r) * 20 + a] : 0.0f;
-  }
-  for (int k = threadIdx.x; k < (ROWS + 1) * 7; k += blockDim.x) {
-    const int r = k / 7, c = k % 7;
-    s_qtr[r][c] = r <= nr ? qtr[(size_t)(i0 - 1 + r) * 7 + c] : 0.0f;
-  }
-  if (qidx)
-    for (int r = threadIdx.x; r < ROWS; r += blockDim.x)
-      s_qidx[r] = r < nr ? qidx[i0 - 1 + r] : 0;
-  __syncthreads();
-}
-
-// -------------------------------------------------------------- K1/K6 --
-// Best local score per template, egq = egt = 0: MM is 0 on row 0 and
-// column 0, the other states -FLT_MAX.  The arithmetic is K1's own
-// (viterbi_lanes.py:537-552): the five MM candidates are factored into
-// two max trees.  K6 (SS != SS_NONE, exact log2 only) adds the SS term
-// to Si after the log2 and the shift: ss [Lq+1][Lt+1][B] (SS_DENSE), or
-// lut[qidx[i-1] + tidx[(j-1)*B + b]] (SS_LUT).  Padded template columns
-// (zero profile, zero table offset) score like K1's: their -FLT_MAX
-// transitions keep them from extending a real path.
-template <bool FAST, int SS>
-__global__ void __launch_bounds__(THREADS)
-vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
-                 const float* __restrict__ tp, const float* __restrict__ ttr,
-                 int B, int Lq, int Lt, float sh,
-                 const float* __restrict__ ss, const float* __restrict__ lut,
-                 int n_lut, const int* __restrict__ qidx,
-                 const int* __restrict__ tidx,
-                 float* __restrict__ scratch, float* __restrict__ out) {
-  static_assert(!(FAST && SS != SS_NONE), "K6 uses the exact log2");
-  __shared__ float s_qp[ROWS][20];
-  __shared__ float s_qtr[ROWS + 1][7];
-  __shared__ float s_lut[SS == SS_LUT ? SS_LUT_MAX : 1];
-  __shared__ int s_qidx[ROWS];
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = b < B;
-  const size_t SB = (size_t)B;
-  // the table is visible after the first strip's __syncthreads
-  if constexpr (SS == SS_LUT)
-    for (int k = threadIdx.x; k < n_lut; k += blockDim.x) s_lut[k] = lut[k];
-  // scratch[(j*5 + s)*B + b]: state s of the row above the strip
-  if (live) {
-    for (int j = 0; j <= Lt; ++j) {
-      float* sc = scratch + (size_t)j * 5 * SB + b;
-      sc[0] = 0.0f;
-      sc[SB] = NEG;
-      sc[2 * SB] = NEG;
-      sc[3 * SB] = NEG;
-      sc[4 * SB] = NEG;
-    }
-  }
-  float best = NEG;
-  for (int i0 = 1; i0 <= Lq; i0 += ROWS) {
-    const int nr = min(ROWS, Lq - i0 + 1);
-    load_strip(qp, qtr, i0, nr, s_qp, s_qtr,
-               SS == SS_LUT ? qidx : nullptr, s_qidx);
-    if (!live) continue;
-    float cmm[ROWS], cgd[ROWS], cim[ROWS], cdg[ROWS], cmi[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      cmm[r] = 0.0f;
-      cgd[r] = cim[r] = cdg[r] = cmi[r] = NEG;
-    }
-    // diagonal predecessor of the strip's first row at column 1: the
-    // column-0 boundary of row i0-1
-    float pmm = 0.0f, pgd = NEG, pim = NEG, pdg = NEG, pmi = NEG;
-    for (int j = 1; j <= Lt; ++j) {
-      float tcol[20];
-      const float* tpj = tp + (size_t)j * 20 * SB + b;
-#pragma unroll
-      for (int a = 0; a < 20; ++a) tcol[a] = tpj[a * SB];
-      const float* tr1 = ttr + (size_t)(j - 1) * 7 * SB + b;
-      const float* tr0 = ttr + (size_t)j * 7 * SB + b;
-      const float tm2m = tr1[M2M * SB], td2m = tr1[D2M * SB];
-      const float ti2m = tr1[I2M * SB], tm2d = tr1[M2D * SB];
-      const float td2d = tr1[D2D * SB];
-      const float tm2i = tr0[M2I * SB], ti2i = tr0[I2I * SB];
-      const int tj = SS == SS_LUT ? tidx[(size_t)(j - 1) * SB + b] : 0;
-      float* sc = scratch + (size_t)j * 5 * SB + b;
-      float umm = sc[0], ugd = sc[SB], uim = sc[2 * SB], udg = sc[3 * SB],
-            umi = sc[4 * SB];
-      float dmm = pmm, dgd = pgd, dim = pim, ddg = pdg, dmi = pmi;
-      pmm = umm; pgd = ugd; pim = uim; pdg = udg; pmi = umi;
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r < nr) {
-          const float qm2m = s_qtr[r][M2M], qi2m = s_qtr[r][I2M];
-          const float qd2m = s_qtr[r][D2M], qm2d = s_qtr[r][M2D];
-          const float qd2d = s_qtr[r][D2D];
-          const float qm2i = s_qtr[r + 1][M2I], qi2i = s_qtr[r + 1][I2I];
-          const float dot = dot20(s_qp[r], tcol);
-          float si = FAST ? log2_quartic(dot, sh)
-                          : __fadd_rn(log2f4(dot), sh);
-          if constexpr (SS == SS_DENSE)
-            si = __fadd_rn(si, ss[((size_t)(i0 + r) * (Lt + 1) + j) * SB
-                                  + b]);
-          if constexpr (SS == SS_LUT)
-            si = __fadd_rn(si, s_lut[s_qidx[r] + tj]);
-          float t_a = fmax_(dmm + qm2m, dim + qi2m);
-          t_a = fmax_(t_a, ddg + qd2m) + tm2m;
-          const float t_b = fmax_(dgd + td2m, dmi + ti2m) + qm2m;
-          const float mm = fmax_(fmax_(0.0f, t_a), t_b) + si;
-          const float dg = fmax_(umm + qm2d, udg + qd2d);
-          const float mi = fmax_(umm + tm2i, umi + ti2i) + qm2m;
-          const float lmm = cmm[r], lgd = cgd[r], lim = cim[r];
-          const float ldg = cdg[r], lmi = cmi[r];
-          const float gd = fmax_(lmm + tm2d, lgd + td2d);
-          const float im = fmax_(lmm + qm2i, lim + qi2i) + tm2m;
-          best = fmax_(best, mm);
-          dmm = lmm; dgd = lgd; dim = lim; ddg = ldg; dmi = lmi;
-          umm = mm; ugd = gd; uim = im; udg = dg; umi = mi;
-          cmm[r] = mm; cgd[r] = gd; cim[r] = im; cdg[r] = dg; cmi[r] = mi;
-        }
-      }
-      sc[0] = umm; sc[SB] = ugd; sc[2 * SB] = uim; sc[3 * SB] = udg;
-      sc[4 * SB] = umi;
-    }
-  }
-  if (live) out[b] = fmax_(best, NEG);
-}
-
-// --------------------------------------------------------------- K2/K3 --
-// The contract of ops/viterbi.py:viterbi_batch (hhviterbialgorithm.cpp
-// :45-497): MM is -j*pt on row 0 and -i*pq on column 0; each cell adds
-// the cell-off term (0 or -FLT_MAX) after the max when HAS_CO; with
-// HAS_SS, Si gains lut[qidx[i-1] + tidx[j-1][b]] for 1 <= j <= t_L[b] and
-// 0 elsewhere (the values build_ss_score writes); backtrace byte = MM
-// predecessor code (bits 0-2) | GD/IM/DG/MI opened from MM (bits 3-6).
-// The best cell is taken over rows i <= Lq_true (global mode: last row
-// Lq_true or the template's true last column), keyed by (score desc, i
-// asc, j asc).
-
 __device__ __forceinline__ void cp_async4(float* dst, const void* src,
                                           int src_bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -332,8 +200,8 @@ __device__ __forceinline__ bool bt_better(float s, int i, int j, float best,
 
 // Stage template columns m*G .. m*G+G-1 of the block's templates into
 // ring slot m % 3: word (column, field, group) = tp (fields 0-19), ttr
-// (20-26) and, with SS, the SS offset of column j-1 (27).  Columns past
-// Lt and lanes past B are zero-filled.
+// (20-26) and, with the SS table, the SS offset of column j-1 (27).
+// Columns past Lt and lanes past B are zero-filled.
 template <bool HAS_SS>
 __device__ __forceinline__ void bt_stage(float* s_t, int m, int G, int NG,
                                          int TS, int b0, int B, int Lt,
@@ -361,42 +229,69 @@ __device__ __forceinline__ void bt_stage(float* s_t, int m, int G, int NG,
   }
 }
 
-template <bool HAS_CO, bool HAS_SS, bool LOCAL>
-__global__ void __launch_bounds__(BT_THREADS)
-vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
-              const float* __restrict__ tp, const float* __restrict__ ttr,
-              const int* __restrict__ t_L, const uint8_t* __restrict__ co,
-              const float* __restrict__ lut, int n_lut,
-              const int* __restrict__ qidx, const int* __restrict__ tidx,
-              int B, int Lq, int Lt, int Lq_true, float shift, float pq,
-              float pt, int G, float* __restrict__ scratch,
-              float* __restrict__ score, int* __restrict__ i2,
-              int* __restrict__ j2, uint8_t* __restrict__ bt) {
+// ------------------------------------------------------------ wavefront --
+// One sweep of the wavefront (design note above).  SCORE: K1/K6, the best
+// local score per template with egq = egt = 0: MM is +0 on row 0 and
+// column 0, the other states -FLT_MAX; K1's own arithmetic
+// (viterbi_lanes.py:537-552), the five MM candidates factored into two
+// max trees; Si = log2_quartic(dot, shift) (FAST: shift is the caller's
+// shift - 127) or log2f4(dot) + shift, plus, in every cell (K6),
+// ss[b][i][j] (SS_DENSE) or lut[qidx[i-1] + tidx[j-1][b]] (SS_LUT);
+// padded template columns (zero profile, zero table offset) score as in
+// the plain version, their -FLT_MAX transitions keeping them from
+// extending a real path; out: score (B,).  !SCORE: K2/K3, the contract
+// of ops/viterbi.py:viterbi_batch (hhviterbialgorithm.cpp:45-497): MM is
+// -j*pt on row 0 and -i*pq on column 0; each cell adds the cell-off term
+// (0 or -FLT_MAX) after the max when HAS_CO; with SS_LUT, Si gains
+// lut[qidx[i-1] + tidx[j-1][b]] for 1 <= j <= t_L[b] and 0 elsewhere (the
+// values build_ss_score writes); backtrace byte = MM predecessor code
+// (bits 0-2) | GD/IM/DG/MI opened from MM (bits 3-6).  The best cell is
+// taken over rows i <= Lq_true (global mode: last row Lq_true or the
+// template's true last column), keyed by (score desc, i asc, j asc); out:
+// score, i2, j2, bt.  GT: the group width as a constant (K1/K6), or 0 to
+// take G_arg (K2/K3).
+template <bool SCORE, bool FAST, bool HAS_CO, int SS, bool LOCAL, int GT>
+__device__ __forceinline__ void wave_sweep(
+    const float* __restrict__ qp, const float* __restrict__ qtr,
+    const float* __restrict__ tp, const float* __restrict__ ttr,
+    const int* __restrict__ t_L, const uint8_t* __restrict__ co,
+    const float* __restrict__ ss, const float* __restrict__ lut, int n_lut,
+    const int* __restrict__ qidx, const int* __restrict__ tidx, int B,
+    int Lq, int Lt, int Lq_true, float shift, float pq, float pt, int G_arg,
+    float* __restrict__ scratch, float* __restrict__ score,
+    int* __restrict__ i2, int* __restrict__ j2, uint8_t* __restrict__ bt) {
+  static_assert(!SCORE || (!HAS_CO && LOCAL), "K1/K6: local, no cell-off");
+  static_assert(SCORE || (!FAST && SS != SS_DENSE),
+                "K2/K3: exact log2, SS from the table");
+  static_assert(!(FAST && SS != SS_NONE), "K6 uses the exact log2");
+  constexpr bool LUT = SS == SS_LUT;
   extern __shared__ __align__(16) float smem[];
+  const int G = GT ? GT : G_arg;
   const int NG = BT_THREADS / G;
   const int TS = bt_col_stride(G);
   const int RING = 3 * G;
   const int GR = G * BT_R;
   const int Wq = bt_col_bytes(Lq);
   float* s_lut = smem;
-  float* s_q = smem + (HAS_SS ? SS_LUT_MAX : 0);
+  float* s_q = smem + (LUT ? SS_LUT_MAX : 0);
   float* s_t = s_q + G * BT_QB;
   const int k = threadIdx.x % G;      // lane of the group
   const int g = threadIdx.x / G;      // group (template) of the block
   const int b0 = blockIdx.x * NG;
   const int b = b0 + g;
   const bool live = b < B;
-  const int tL = live ? t_L[b] : 0;
+  const int tL = !SCORE && live ? t_L[b] : 0;
   const float smin = LOCAL ? 0.0f : NEG;
   const int passes = (Lq + GR - 1) / GR;
   const size_t col0 = (size_t)(live ? b : 0) * (Lt + 1);
-  uint8_t* btb = bt + col0 * Wq;
+  uint8_t* btb = SCORE ? nullptr : bt + col0 * Wq;
   const uint8_t* cob = HAS_CO ? co + col0 * Wq : nullptr;
   float* scb = scratch ? scratch + col0 * 5 : nullptr;
+  const float* ssb = SS == SS_DENSE ? ss + col0 * (Lq + 1) : nullptr;
 
-  if constexpr (HAS_SS)
+  if constexpr (LUT)
     for (int e = threadIdx.x; e < n_lut; e += BT_THREADS) s_lut[e] = lut[e];
-  if (live)       // column 0 of the backtrace bytes
+  if (!SCORE && live)   // column 0 of the backtrace bytes
     for (int w = k; w < Wq / 8; w += G)
       reinterpret_cast<unsigned long long*>(btb)[w] = 0ull;
 
@@ -409,7 +304,7 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
     cp_async_wait<0>();
     __syncthreads();                // the last pass is done with s_q, s_t
     // the pass's query rows: qp[i], the five transitions of row i-1 and
-    // the two of row i that a cell reads, and K3's SS offset of row i
+    // the two of row i that a cell reads, and the SS offset of row i
     for (int e = threadIdx.x; e < GR * BT_QF; e += BT_THREADS) {
       const int rr = e / BT_QF, f = e % BT_QF, i = base + rr + 1;
       float v = 0.0f;
@@ -422,16 +317,15 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
           v = qtr[(size_t)(i - 1) * 7 + c];
         } else if (f < 27) {
           v = qtr[(size_t)i * 7 + (f == 25 ? M2I : I2I)];
-        } else if (HAS_SS) {
+        } else if (LUT) {
           v = __int_as_float(qidx[i - 1]);
         }
       }
       s_q[(rr / BT_R) * BT_QB + (rr % BT_R) * BT_QF + f] = v;
     }
-    bt_stage<HAS_SS>(s_t, 0, G, NG, TS, b0, B, Lt, tp, ttr, tidx);
+    bt_stage<LUT>(s_t, 0, G, NG, TS, b0, B, Lt, tp, ttr, tidx);
     cp_async_commit();
-    if (G <= Lt) bt_stage<HAS_SS>(s_t, 1, G, NG, TS, b0, B, Lt, tp, ttr,
-                                  tidx);
+    if (G <= Lt) bt_stage<LUT>(s_t, 1, G, NG, TS, b0, B, Lt, tp, ttr, tidx);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
@@ -440,15 +334,16 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
     float cmm[BT_R], cgd[BT_R], cim[BT_R], cdg[BT_R], cmi[BT_R];
 #pragma unroll
     for (int r = 0; r < BT_R; ++r) {
-      cmm[r] = __fmul_rn(-(float)(i0 + r), pq);
+      cmm[r] = SCORE ? 0.0f : __fmul_rn(-(float)(i0 + r), pq);
       cgd[r] = cim[r] = cdg[r] = cmi[r] = NEG;
     }
     // the strip's last row at the lane's current column, for lane k+1
     float omm = cmm[BT_R - 1], ogd = NEG, oim = NEG, odg = NEG, omi = NEG;
     // the row above the strip at column j-1 (lane 0: the pass boundary at
     // column 0; the other lanes get theirs from lane k-1 before use)
-    float pmm = base == 0 ? __fmul_rn(-0.0f, pt)
-                          : __fmul_rn(-(float)base, pq);
+    float pmm = SCORE ? 0.0f
+                : base == 0 ? __fmul_rn(-0.0f, pt)
+                            : __fmul_rn(-(float)base, pq);
     float pgd = NEG, pim = NEG, pdg = NEG, pmi = NEG;
     const float* qlane = s_q + k * BT_QB;
     const bool rows_on = i0 <= Lq;
@@ -458,7 +353,7 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
         cp_async_wait<0>();
         __syncthreads();
         if ((m + 1) * G <= Lt)
-          bt_stage<HAS_SS>(s_t, m + 1, G, NG, TS, b0, B, Lt, tp, ttr, tidx);
+          bt_stage<LUT>(s_t, m + 1, G, NG, TS, b0, B, Lt, tp, ttr, tidx);
         cp_async_commit();
       }
       const int j = s - k + 1;
@@ -470,7 +365,7 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
       float vmi = __shfl_up_sync(FULL, omi, 1, G);
       if (k == 0) {
         if (base == 0) {
-          vmm = __fmul_rn(-(float)j, pt);
+          vmm = SCORE ? 0.0f : __fmul_rn(-(float)j, pt);
           vgd = vim = vdg = vmi = NEG;
         } else if (live && j <= Lt) {
           const float* sc = scb + (size_t)j * 5;
@@ -487,7 +382,7 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
         const float ti2m = tq[(20 + I2M) * NG], tm2d = tq[(20 + M2D) * NG];
         const float td2d = tq[(20 + D2D) * NG];
         const float tm2i = tc[(20 + M2I) * NG], ti2i = tc[(20 + I2I) * NG];
-        const int tj = HAS_SS ? __float_as_int(tc[27 * NG]) : 0;
+        const int tj = LUT ? __float_as_int(tc[27 * NG]) : 0;
         const bool ss_on = j <= tL;
         unsigned long long cobits = 0ull, btbits = 0ull;
         if (HAS_CO && live && rows_on)
@@ -508,65 +403,86 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
           }
           const float qm2m = q[20], qi2m = q[21], qd2m = q[22];
           const float qm2d = q[23], qd2d = q[24], qm2i = q[25], qi2i = q[26];
-          float si = __fadd_rn(log2f4(dot20(q, tcol)), shift);
-          if (HAS_SS)
-            si = si + (ss_on ? s_lut[__float_as_int(q[27]) + tj] : 0.0f);
-          const float cof = HAS_CO && ((cobits >> (8 * r)) & 0xffull)
-                                ? NEG : 0.0f;
-          // MM: five predecessors at (i-1, j-1), strict ">" code chain
-          const float c_mm = (dmm + qm2m) + tm2m;
-          float best5 = fmax_(smin, c_mm);
-          int code = c_mm > smin ? MM : STOP;
-          const float c_gd = (dgd + qm2m) + td2m;
-          if (c_gd > best5) code = GD;
-          best5 = fmax_(best5, c_gd);
-          const float c_im = (dim + qi2m) + tm2m;
-          if (c_im > best5) code = IM;
-          best5 = fmax_(best5, c_im);
-          const float c_dg = (ddg + qd2m) + tm2m;
-          if (c_dg > best5) code = DG;
-          best5 = fmax_(best5, c_dg);
-          const float c_mi = (dmi + qm2m) + ti2m;
-          if (c_mi > best5) code = MI;
-          best5 = fmax_(best5, c_mi);
-          float mm = best5 + si;
-          // DG/MI: predecessors at (i-1, j)
-          const float a_dg = umm + qm2d, b_dg = udg + qd2d;
-          float dg = fmax_(a_dg, b_dg);
-          const float a_mi = (umm + qm2m) + tm2i;
-          const float b_mi = (umi + qm2m) + ti2i;
-          float mi = fmax_(a_mi, b_mi);
-          // GD/IM: predecessors at (i, j-1)
           const float lmm = cmm[r], lgd = cgd[r], lim = cim[r];
           const float ldg = cdg[r], lmi = cmi[r];
-          const float a_gd = lmm + tm2d, b_gd = lgd + td2d;
-          float gd = fmax_(a_gd, b_gd);
-          const float a_im = (lmm + qm2i) + tm2m;
-          const float b_im = (lim + qi2i) + tm2m;
-          float im = fmax_(a_im, b_im);
-          if (HAS_CO) {
-            mm = mm + cof;
-            dg = dg + cof;
-            mi = mi + cof;
-            gd = gd + cof;
-            im = im + cof;
-          }
-          btbits |= (unsigned long long)(code | (a_gd > b_gd ? 8 : 0)
-                                         | (a_im > b_im ? 16 : 0)
-                                         | (a_dg > b_dg ? 32 : 0)
-                                         | (a_mi > b_mi ? 64 : 0))
-                    << (8 * r);
-          if (i <= Lq_true && (LOCAL || j == tL || i == Lq_true)
-              && bt_better(mm, i, j, best, bi, bj)) {
-            best = mm;
-            bi = i;
-            bj = j;
+          float mm, gd, im, dg, mi;
+          if constexpr (SCORE) {
+            const float dot = dot20(q, tcol);
+            float si = FAST ? log2_quartic(dot, shift)
+                            : __fadd_rn(log2f4(dot), shift);
+            if constexpr (LUT)
+              si = __fadd_rn(si, s_lut[__float_as_int(q[27]) + tj]);
+            if constexpr (SS == SS_DENSE)   // rows past Lq are never read
+              si = __fadd_rn(si, i <= Lq ? ssb[(size_t)i * (Lt + 1) + j]
+                                         : 0.0f);
+            float t_a = fmax_(dmm + qm2m, dim + qi2m);
+            t_a = fmax_(t_a, ddg + qd2m) + tm2m;
+            const float t_b = fmax_(dgd + td2m, dmi + ti2m) + qm2m;
+            mm = fmax_(fmax_(0.0f, t_a), t_b) + si;
+            dg = fmax_(umm + qm2d, udg + qd2d);
+            mi = fmax_(umm + tm2i, umi + ti2i) + qm2m;
+            gd = fmax_(lmm + tm2d, lgd + td2d);
+            im = fmax_(lmm + qm2i, lim + qi2i) + tm2m;
+            if (i <= Lq) best = fmax_(best, mm);
+          } else {
+            float si = __fadd_rn(log2f4(dot20(q, tcol)), shift);
+            if (LUT)
+              si = si + (ss_on ? s_lut[__float_as_int(q[27]) + tj] : 0.0f);
+            const float cof = HAS_CO && ((cobits >> (8 * r)) & 0xffull)
+                                  ? NEG : 0.0f;
+            // MM: five predecessors at (i-1, j-1), strict ">" code chain
+            const float c_mm = (dmm + qm2m) + tm2m;
+            float best5 = fmax_(smin, c_mm);
+            int code = c_mm > smin ? MM : STOP;
+            const float c_gd = (dgd + qm2m) + td2m;
+            if (c_gd > best5) code = GD;
+            best5 = fmax_(best5, c_gd);
+            const float c_im = (dim + qi2m) + tm2m;
+            if (c_im > best5) code = IM;
+            best5 = fmax_(best5, c_im);
+            const float c_dg = (ddg + qd2m) + tm2m;
+            if (c_dg > best5) code = DG;
+            best5 = fmax_(best5, c_dg);
+            const float c_mi = (dmi + qm2m) + ti2m;
+            if (c_mi > best5) code = MI;
+            best5 = fmax_(best5, c_mi);
+            mm = best5 + si;
+            // DG/MI: predecessors at (i-1, j)
+            const float a_dg = umm + qm2d, b_dg = udg + qd2d;
+            dg = fmax_(a_dg, b_dg);
+            const float a_mi = (umm + qm2m) + tm2i;
+            const float b_mi = (umi + qm2m) + ti2i;
+            mi = fmax_(a_mi, b_mi);
+            // GD/IM: predecessors at (i, j-1)
+            const float a_gd = lmm + tm2d, b_gd = lgd + td2d;
+            gd = fmax_(a_gd, b_gd);
+            const float a_im = (lmm + qm2i) + tm2m;
+            const float b_im = (lim + qi2i) + tm2m;
+            im = fmax_(a_im, b_im);
+            if (HAS_CO) {
+              mm = mm + cof;
+              dg = dg + cof;
+              mi = mi + cof;
+              gd = gd + cof;
+              im = im + cof;
+            }
+            btbits |= (unsigned long long)(code | (a_gd > b_gd ? 8 : 0)
+                                           | (a_im > b_im ? 16 : 0)
+                                           | (a_dg > b_dg ? 32 : 0)
+                                           | (a_mi > b_mi ? 64 : 0))
+                      << (8 * r);
+            if (i <= Lq_true && (LOCAL || j == tL || i == Lq_true)
+                && bt_better(mm, i, j, best, bi, bj)) {
+              best = mm;
+              bi = i;
+              bj = j;
+            }
           }
           dmm = lmm; dgd = lgd; dim = lim; ddg = ldg; dmi = lmi;
           umm = mm; ugd = gd; uim = im; udg = dg; umi = mi;
           cmm[r] = mm; cgd[r] = gd; cim[r] = im; cdg[r] = dg; cmi[r] = mi;
         }
-        if (live && rows_on) {
+        if (!SCORE && live && rows_on) {
           uint8_t* col = btb + (size_t)j * Wq;
           *reinterpret_cast<unsigned long long*>(col + BT_ROW0 + i0) = btbits;
           if (i0 == 1)              // the word holding row 0
@@ -581,32 +497,76 @@ vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
       pmm = vmm; pgd = vgd; pim = vim; pdg = vdg; pmi = vmi;
     }
   }
-  // the group's best cell
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(FULL, best, off, G);
-    const int oi = __shfl_xor_sync(FULL, bi, off, G);
-    const int oj = __shfl_xor_sync(FULL, bj, off, G);
-    if (bt_better(ob, oi, oj, best, bi, bj)) {
-      best = ob;
-      bi = oi;
-      bj = oj;
+  if constexpr (SCORE) {
+    // the group's maximum
+    for (int off = G / 2; off > 0; off >>= 1)
+      best = fmax_(best, __shfl_xor_sync(FULL, best, off, G));
+    if (live && k == 0) score[b] = fmax_(best, NEG);
+  } else {
+    // the group's best cell
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(FULL, best, off, G);
+      const int oi = __shfl_xor_sync(FULL, bi, off, G);
+      const int oj = __shfl_xor_sync(FULL, bj, off, G);
+      if (bt_better(ob, oi, oj, best, bi, bj)) {
+        best = ob;
+        bi = oi;
+        bj = oj;
+      }
     }
-  }
-  if (live && k == 0) {
-    score[b] = best;
-    i2[b] = bi;
-    j2[b] = bj;
+    if (live && k == 0) {
+      score[b] = best;
+      i2[b] = bi;
+      j2[b] = bj;
+    }
   }
 }
 
-template <bool FAST, int SS>
-int launch_score(dim3 grid, cudaStream_t stream, const float* qp,
-                 const float* qtr, const float* tp, const float* ttr, int B,
-                 int Lq, int Lt, float sh, const float* ss, const float* lut,
-                 int n_lut, const int* qidx, const int* tidx, float* scratch,
-                 float* out) {
-  vit_score_kernel<FAST, SS><<<grid, THREADS, 0, stream>>>(
-      qp, qtr, tp, ttr, B, Lq, Lt, sh, ss, lut, n_lut, qidx, tidx, scratch,
+template <bool HAS_CO, bool HAS_SS, bool LOCAL>
+__global__ void __launch_bounds__(BT_THREADS)
+vit_bt_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
+              const float* __restrict__ tp, const float* __restrict__ ttr,
+              const int* __restrict__ t_L, const uint8_t* __restrict__ co,
+              const float* __restrict__ lut, int n_lut,
+              const int* __restrict__ qidx, const int* __restrict__ tidx,
+              int B, int Lq, int Lt, int Lq_true, float shift, float pq,
+              float pt, int G, float* __restrict__ scratch,
+              float* __restrict__ score, int* __restrict__ i2,
+              int* __restrict__ j2, uint8_t* __restrict__ bt) {
+  wave_sweep<false, false, HAS_CO, HAS_SS ? SS_LUT : SS_NONE, LOCAL, 0>(
+      qp, qtr, tp, ttr, t_L, co, nullptr, lut, n_lut, qidx, tidx, B, Lq, Lt,
+      Lq_true, shift, pq, pt, G, scratch, score, i2, j2, bt);
+}
+
+// One block of 256 threads an SM: a thread holds ~145 registers, more
+// than the 128 that a second block would leave it.
+template <bool FAST, int SS, int G>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+vit_score_kernel(const float* __restrict__ qp, const float* __restrict__ qtr,
+                 const float* __restrict__ tp, const float* __restrict__ ttr,
+                 const float* __restrict__ ss, const float* __restrict__ lut,
+                 int n_lut, const int* __restrict__ qidx,
+                 const int* __restrict__ tidx, int B, int Lq, int Lt,
+                 float sh, float* __restrict__ scratch,
+                 float* __restrict__ out) {
+  wave_sweep<true, FAST, false, SS, true, G>(
+      qp, qtr, tp, ttr, nullptr, nullptr, ss, lut, n_lut, qidx, tidx, B, Lq,
+      Lt, Lq, sh, 0.0f, 0.0f, G, scratch, out, nullptr, nullptr, nullptr);
+}
+
+template <bool FAST, int SS, int G>
+int launch_score(int smem, cudaStream_t stream, const float* qp,
+                 const float* qtr, const float* tp, const float* ttr,
+                 const float* ss, const float* lut, int n_lut,
+                 const int* qidx, const int* tidx, int B, int Lq, int Lt,
+                 float sh, float* scratch, float* out) {
+  auto kern = vit_score_kernel<FAST, SS, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int ng = BT_THREADS / G;
+  kern<<<(B + ng - 1) / ng, BT_THREADS, smem, stream>>>(
+      qp, qtr, tp, ttr, ss, lut, n_lut, qidx, tidx, B, Lq, Lt, sh, scratch,
       out);
   return (int)cudaGetLastError();
 }
@@ -637,45 +597,59 @@ const char* hh_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1 and K6.  qp (Lq+2, 20), qtr (Lq+2, 7), tp [Lt+2][20][B], ttr
-// [Lt+2][7][B], scratch [Lt+1][5][B] f32, out (B,) f32.  sh = shift
-// (exact) or shift - 127 (fast).  K6's SS term (exact only): ss
-// [Lq+1][Lt+1][B] f32, or lut (n_lut <= 1936) f32 with qidx (Lq,) i32
-// and tidx [Lt][B] i32 (0 <= qidx[i] + tidx[j][b] < n_lut, not
-// checked); both NULL for K1.  Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
-int hh_vit_score(const float* qp, const float* qtr, const float* tp,
-                 const float* ttr, int B, int Lq, int Lt, float sh, int fast,
-                 const float* ss, const float* lut, int n_lut,
-                 const int* qidx, const int* tidx, float* scratch,
-                 float* out, void* stream) {
-  if (B <= 0) return 0;
-  if ((fast && (ss || lut)) || (lut && (n_lut <= 0 || n_lut > SS_LUT_MAX)))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((B + THREADS - 1) / THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-#define HH_SCORE(F, S)                                                     \
-  return launch_score<F, S>(grid, s, qp, qtr, tp, ttr, B, Lq, Lt, sh, ss, \
-                            lut, n_lut, qidx, tidx, scratch, out)
-  if (fast) HH_SCORE(true, SS_NONE);
-  if (ss) HH_SCORE(false, SS_DENSE);
-  if (lut) HH_SCORE(false, SS_LUT);
-  HH_SCORE(false, SS_NONE);
-#undef HH_SCORE
-}
-
-// Dynamic shared memory of one K2/K3 block at group width G (ss: with the
-// SS table), or -1 for a width the kernel does not take.
+// Dynamic shared memory of one wavefront block (K1/K6 and K2/K3) at group
+// width G (ss: with the SS table), or -1 for a width the kernels do not
+// take.
 int hh_bt_smem_bytes(int G, int ss) {
   if (G != 8 && G != 16 && G != 32) return -1;
   return bt_smem_bytes(G, ss != 0);
 }
 
-// Words between two template columns of a K2/K3 block's ring at group
-// width G, or -1 for a width the kernel does not take.
+// Words between two template columns of a wavefront block's ring at
+// group width G, or -1 for a width the kernels do not take.
 int hh_bt_col_stride(int G) {
   if (G != 8 && G != 16 && G != 32) return -1;
   return bt_col_stride(G);
+}
+
+// K1 and K6.  qp (Lq+2, 20), qtr (Lq+2, 7), tp [Lt+2][20][B], ttr
+// [Lt+2][7][B] f32; K6's SS term (exact only, one form or none): ss
+// [B][Lq+1][Lt+1] f32, or the table lut (n_lut <= 1936) f32 with qidx
+// (Lq,) i32 and tidx [Lt][B] i32 (0 <= qidx[i] + tidx[j][b] < n_lut, not
+// checked).  sh = shift (exact) or shift - 127 (fast).  G lanes a
+// template (8, 16 or 32: ops/viterbi_lanes.py:score_geometry), BT_R rows
+// a lane, ceil(Lq / (G*BT_R)) passes; scratch [B][Lt+1][5] f32 when there
+// is more than one pass.  Out: out (B,) f32.  Returns the cudaError_t of
+// the launch, cudaErrorInvalidValue for arguments the kernel does not
+// take.
+int hh_vit_score(const float* qp, const float* qtr, const float* tp,
+                 const float* ttr, const float* ss, const float* lut,
+                 int n_lut, const int* qidx, const int* tidx, int B, int Lq,
+                 int Lt, float sh, int fast, int G, float* scratch,
+                 float* out, void* stream) {
+  if (B <= 0) return 0;
+  const int smem = hh_bt_smem_bytes(G, lut != nullptr);
+  if (smem < 0 || smem > BT_SMEM_MAX || Lq < 1 || Lt < 1
+      || (Lq > G * BT_R && !scratch) || (ss && lut) || (fast && (ss || lut))
+      || (lut && (n_lut <= 0 || n_lut > SS_LUT_MAX || !qidx || !tidx)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define HH_SCORE(F, S, W)                                                 \
+  return launch_score<F, S, W>(smem, s, qp, qtr, tp, ttr, ss, lut, n_lut, \
+                               qidx, tidx, B, Lq, Lt, sh, scratch, out)
+#define HH_SCORE_G(W)                     \
+  if (G == W) {                           \
+    if (fast) HH_SCORE(true, SS_NONE, W); \
+    if (ss) HH_SCORE(false, SS_DENSE, W); \
+    if (lut) HH_SCORE(false, SS_LUT, W);  \
+    HH_SCORE(false, SS_NONE, W);          \
+  }
+  HH_SCORE_G(8)
+  HH_SCORE_G(16)
+  HH_SCORE_G(32)
+#undef HH_SCORE_G
+#undef HH_SCORE
+  return (int)cudaErrorInvalidValue;
 }
 
 // K2 (co = lut = NULL, local = 1) and K3.  qp (Lq+2, 20), qtr (Lq+2, 7),

@@ -1,15 +1,15 @@
 """Template-lanes Viterbi kernels: K1 and K6 (score-only sweeps) and K2
 (full-backtrace pass), CUDA C++ in ``csrc/viterbi.cu``.
 
-K1/K6 map one TEMPLATE to one GPU thread, the way the reference maps
-templates to SIMD lanes (src/hhviterbialgorithm.cpp:45-497), and walk
-query rows and template columns in the reference's row-sequential order.
-K2 (and K3, the same kernel) give each template a group of G lanes that
-sweep an anti-diagonal wavefront: lane k holds 8 query rows and computes
-column s - k + 1 at step s, taking the row above from lane k-1 by a warp
-shuffle (see the kernel source for the design and the layouts).  Each
-wrapper takes the JAX package's shapes — ``tp`` (B, Lt+2, 20), ``ttr``
-(B, Lt+2, 7) — and reads them lanes-last: ``tp.permute(1, 2,
+All three (and K3, in ``ops/viterbi_rows.py``) give each template a
+group of G lanes that sweep an anti-diagonal wavefront: lane k holds 8
+query rows and computes column s - k + 1 at step s, taking the row above
+from lane k-1 by a warp shuffle; queries longer than G*8 rows run in
+passes (see the kernel source for the design and the layouts).
+:func:`score_geometry` (K1/K6) and :func:`bt_geometry` (K2/K3) pick the
+launch's group width G; the C entries take G alone and derive the rest.
+Each wrapper takes the JAX package's shapes — ``tp`` (B, Lt+2, 20),
+``ttr`` (B, Lt+2, 7) — and reads them lanes-last: ``tp.permute(1, 2,
 0).contiguous()`` is free when the caller's storage is already (Lt+2,
 20, B), as the resident template pack hands it out.
 
@@ -30,9 +30,10 @@ K6 ``viterbi_score_lanes`` replaces the Pallas kernel of the same name:
 the same sweep with ``Si = log2f4(dot) + shift + ss``, the secondary-
 structure term given densely (``ss_score`` (B, Lq+1, Lt+1)) or as a
 lookup table (``ss_lut`` flat, ``ss_qidx`` (Lq,), ``ss_tidx`` (B, Lt):
-ss(b, i, j) = lut[qidx[i-1] + tidx[b, j-1]]).  It is K1 ``exact`` with
-one more add per cell, in the same kernel (an SS-mode template
-parameter), so with no SS term it is K1 ``exact`` bit for bit.  Si is
+ss(b, i, j) = lut[qidx[i-1] + tidx[b, j-1]]; the search passes this
+form, ``build_ss_lut``'s).  It is K1 ``exact`` with one more add per
+cell, in the same kernel (an SS-mode template parameter), so with no SS
+term it is K1 ``exact`` bit for bit.  Si is
 f32 only: the TPU kernel's bfloat16 Si stream saved HBM bandwidth on a
 machine where Si lived in HBM; here Si never leaves the registers.
 
@@ -40,11 +41,10 @@ K2 ``viterbi_backtrace_lanes`` replaces
 hhsuite_tpu/ops/viterbi_lanes.py:viterbi_backtrace_lanes: the full local
 Viterbi (no cell-off, no SS) with score, best cell (score desc, i asc,
 j asc) and the backtrace bytes, bit-identical to
-:func:`ops.viterbi.viterbi_batch`.  :func:`bt_geometry` picks the
-launch's group width G, and the bytes come back as a (B, Lq+1, Lt+1)
-view of [B][Lt+1][Wq] storage (:func:`ops.viterbi.bt_storage`), which
-the device walk (:func:`ops.viterbi.backtrace_walk_packed8`) reads in
-place.
+:func:`ops.viterbi.viterbi_batch`.  The bytes come back as a (B, Lq+1,
+Lt+1) view of [B][Lt+1][Wq] storage (:func:`ops.viterbi.bt_storage`),
+which the device walk (:func:`ops.viterbi.backtrace_walk_packed8`) reads
+in place.
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def bind(lib):
     """Set the C signatures of ``csrc/viterbi.cu``'s entry points on a
     loaded library."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hh_vit_score.argtypes = [P, P, P, P, I, I, I, F, I, P, P, I, P, P,
-                                 P, P, P]
+    lib.hh_vit_score.argtypes = [P, P, P, P, P, P, I, P, P, I, I, I, F, I,
+                                 I, P, P, P]
     lib.hh_vit_score.restype = I
     lib.hh_vit_bt.argtypes = [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I,
                               F, F, F, I, P, P, P, P, P, P]
@@ -131,9 +131,10 @@ def _fast_shift(shift) -> np.float32:
 
 def launch_score(qp, qtr, tp, ttr, sh, fast, what, ss=None, lut=None,
                  qidx=None, tidxT=None):
-    """Launch the score-sweep kernel (K1; K6 with ``ss`` [Lq+1][Lt+1][B]
-    or ``lut`` with ``qidx`` and ``tidxT`` [Lt][B], all on the card).
-    ``sh`` is the shift the kernel adds (K1 fast: shift - 127)."""
+    """Launch the score-sweep kernel (K1; K6 with ``ss`` (B, Lq+1, Lt+1)
+    contiguous, or ``lut`` with ``qidx`` and ``tidxT`` [Lt][B], all on
+    the card) at the group width :func:`score_geometry` picks.  ``sh`` is
+    the shift the kernel adds (K1 fast: shift - 127)."""
     dev = _require_cuda(tp, ttr)
     lib = cuda_lib()
     f32 = torch.float32
@@ -142,17 +143,20 @@ def launch_score(qp, qtr, tp, ttr, sh, fast, what, ss=None, lut=None,
     Lt = Lt2 - 2
     if ttr.shape != (B, Lt2, 7) or qtr.shape != (Lq + 2, 7):
         raise ValueError(f"{what}: inconsistent shapes")
+    geo = score_geometry(B, Lq, Lt)
     qp_c = qp.to(dev, f32).contiguous()
     qtr_c = qtr.to(dev, f32).contiguous()
     tpT = _lanes_last(tp, f32)
     ttrT = _lanes_last(ttr, f32)
-    scratch = torch.empty((Lt + 1, 5, B), dtype=f32, device=dev)
+    scratch = (torch.empty((B, Lt + 1, 5), dtype=f32, device=dev)
+               if geo.passes > 1 else None)
     out = torch.empty(B, dtype=f32, device=dev)
     n_lut = 0 if lut is None else int(lut.numel())
-    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT), B,
-                          Lq, Lt, float(np.float32(sh)), int(fast), _ptr(ss),
-                          _ptr(lut), n_lut, _ptr(qidx), _ptr(tidxT),
-                          _ptr(scratch), _ptr(out), _stream(dev))
+    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT),
+                          _ptr(ss), _ptr(lut), n_lut, _ptr(qidx),
+                          _ptr(tidxT), B, Lq, Lt, float(np.float32(sh)),
+                          int(fast), geo.G, _ptr(scratch), _ptr(out),
+                          _stream(dev))
     _check(lib, rc, what)
     return out
 
@@ -328,7 +332,7 @@ def viterbi_score_lanes(qp, qtr, tp, ttr, t_L, shift, ss_score=None,
         if tuple(ss_score.shape) != (B, Lq + 1, Lt + 1):
             raise ValueError(f"K6: ss_score shape {tuple(ss_score.shape)} "
                              f"!= {(B, Lq + 1, Lt + 1)}")
-        kw["ss"] = _lanes_last(ss_score.to(dev), f32)
+        kw["ss"] = ss_score.to(dev, f32).contiguous()
     elif ss_lut is not None:
         kw = ss_table_args(ss_lut, ss_qidx, ss_tidx, Lq, B, Lt, dev, "K6")
     out = launch_score(qp, qtr, tp, ttr, shift, False,
@@ -347,13 +351,13 @@ viterbi_score_lanes.launches = 0
 # hh_bt_smem_bytes)
 BT_THREADS, BT_R = 256, 8
 # lanes that keep 8 warps on each of the H100's 132 SMs
-_BT_FULL_LANES = 132 * 8 * 32
+_FULL_LANES = 132 * 8 * 32
 
 
-class BtGeometry(NamedTuple):
-    """One launch of the backtrace kernel: G lanes a template, R query
-    rows a lane, ``passes`` passes of G*R rows, ``groups`` templates a
-    block of BT_THREADS."""
+class WaveGeometry(NamedTuple):
+    """One launch of a wavefront kernel: G lanes a template, R query rows
+    a lane, ``passes`` passes of G*R rows, ``groups`` templates a block
+    of BT_THREADS."""
     G: int
     R: int
     passes: int
@@ -365,30 +369,45 @@ class BtGeometry(NamedTuple):
         return p * self.G * self.R + k * self.R + r + 1
 
 
-def bt_geometry(B: int, Lq: int, Lt: int,
-                G: Optional[int] = None) -> BtGeometry:
-    """Launch geometry of the backtrace kernel for B templates of Lt
-    columns and a query of Lq rows.  The group width G is ``G`` when
-    given (8, 16 or 32), else 8 or 32, the one with the least estimated
-    time: passes x (Lt + G - 1) steps, scaled by how far B*G lanes exceed
-    what keeps 8 warps on every SM (G = 32 fills the card at small B, G =
-    8 wastes fewer rows on the last pass and fewer fill/drain steps).
-    G = 16 is left to callers that ask for it: no timed shape favours
-    it."""
+def _wave_geometry(B: int, Lq: int, Lt: int, G: Optional[int], widths,
+                   what: str) -> WaveGeometry:
+    """The group width ``G`` when given (8, 16 or 32), else the one of
+    ``widths`` with the least estimated time: passes x (Lt + G - 1)
+    steps, scaled by how far B*G lanes exceed what keeps 8 warps on every
+    SM (a wide group fills the card at small B, a narrow one wastes fewer
+    rows on the last pass and fewer fill/drain steps)."""
     if B < 1 or Lq < 1 or Lt < 1:
-        raise ValueError(f"backtrace kernel: B={B}, Lq={Lq}, Lt={Lt} "
-                         "must be >= 1")
+        raise ValueError(f"{what}: B={B}, Lq={Lq}, Lt={Lt} must be >= 1")
     if G not in (None, 8, 16, 32):
-        raise ValueError(f"backtrace kernel: G={G} is not 8, 16 or 32")
+        raise ValueError(f"{what}: G={G} is not 8, 16 or 32")
 
     def passes(G):
         return -(-Lq // (G * BT_R))
 
     def cost(G):
-        return passes(G) * (Lt + G - 1) * max(1.0, B * G / _BT_FULL_LANES)
+        return passes(G) * (Lt + G - 1) * max(1.0, B * G / _FULL_LANES)
 
-    G = G or min((8, 32), key=cost)
-    return BtGeometry(G, BT_R, passes(G), BT_THREADS // G)
+    G = G or min(widths, key=cost)
+    return WaveGeometry(G, BT_R, passes(G), BT_THREADS // G)
+
+
+def bt_geometry(B: int, Lq: int, Lt: int,
+                G: Optional[int] = None) -> WaveGeometry:
+    """Launch geometry of the backtrace kernel (K2/K3) for B templates of
+    Lt columns and a query of Lq rows: G = 8 or 32 by the cost model of
+    :func:`_wave_geometry`; G = 16 is left to callers that ask for it (no
+    timed shape favours it)."""
+    return _wave_geometry(B, Lq, Lt, G, (8, 32), "backtrace kernel")
+
+
+def score_geometry(B: int, Lq: int, Lt: int,
+                   G: Optional[int] = None) -> WaveGeometry:
+    """Launch geometry of the score-sweep kernel (K1/K6) for B templates
+    of Lt columns and a query of Lq rows: G = 8, 16 or 32 by the cost
+    model of :func:`_wave_geometry` (at Lq = 320, Lt = 384: 8 for a full
+    sweep chunk of 8192 templates, 16 for 2048, as timed in
+    ``chip_smoke.py`` phase 1)."""
+    return _wave_geometry(B, Lq, Lt, G, (8, 16, 32), "score kernel")
 
 
 def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, shift, local, Lq_true,

@@ -23,7 +23,7 @@
 #define __device__ inline
 #define __host__
 #define __forceinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __shared__ static
 

@@ -7,8 +7,10 @@ The card is where the kernels are held to their plain versions
 (``test_torch_kernels_cuda.py``, ``chip_smoke.py``); this runs the same
 source's control flow here: the K2/K3 wavefront (group widths, passes,
 the pass boundary, the template ring, the best-cell reduction, the
-backtrace and cell-off storage, the SS table) and the K1/K6 sweep,
-bit for bit against ``viterbi_batch`` / ``viterbi_score_lanes_plain``.
+backtrace and cell-off storage, the SS table) and the K1/K6 sweep on
+the same wavefront (fast, exact, SS table and dense SS at each group
+width, across the pass boundary), bit for bit against ``viterbi_batch``
+/ ``viterbi_score_lanes_plain``.
 IEEE f32 on both sides (g++ -ffp-contract=off, as nvcc -fmad=false).
 Skips where g++ is missing.
 """
@@ -125,19 +127,48 @@ def test_emulated_bt_kernel_bit_identical(emulated, monkeypatch, Lq, Lt, B,
         TV.backtrace_walk_packed8(want[3], *want[1:3], want[0], kmax))
 
 
-@pytest.mark.parametrize("mode", ["fast", "exact", "lut", "dense"])
-def test_emulated_score_kernel_bit_identical(emulated, mode):
-    Lq, Lt, B = 37, 29, 40
-    qp, qtr, tp, ttr, tl, _co = _inputs(Lq, Lt, B, seed=3)
-    lut, qidx, tidx, dense = (torch.from_numpy(x) for x in
-                              _ss_lut_inputs(Lq, Lt, B, seed=4))
+# (G, Lq, Lt, B, padded lane): the first at the width score_geometry
+# picks; then at each group width one query row, one pass exactly (G*8
+# rows), a second pass of one row (G*8 + 1), three passes (2*G*8 + 1),
+# one template column, fewer columns than lanes, one template, and a
+# block of 256/G templates left partly empty, its last lane padding only
+SCORE_CASES = [(None, 37, 29, 40, False)] + [
+    c for G in (8, 16, 32) for c in (
+        (G, 1, 13, 5, False), (G, 8 * G, 11, 3, True),
+        (G, 8 * G + 1, 9, 4, False), (G, 16 * G + 1, 7, 2, False),
+        (G, 20, 1, 6, False), (G, 24, G - 3, 3, False),
+        (G, 30, 10, 1, False), (G, 17, 6, 256 // G + 3, True))]
+
+
+def _score_case_id(mode, case):
+    G, Lq, Lt, B, pad = case
+    return mode if G is None else (f"{mode}-G{G}-Lq{Lq}-Lt{Lt}-B{B}"
+                                   + ("-pad" if pad else ""))
+
+
+@pytest.mark.parametrize("mode,case", [
+    pytest.param(m, c, id=_score_case_id(m, c)) for c in SCORE_CASES
+    for m in ("fast", "exact", "lut", "dense")])
+def test_emulated_score_kernel_bit_identical(emulated, monkeypatch, mode,
+                                             case):
+    G, Lq, Lt, B, pad = case
+    geometry = VL.score_geometry
+    monkeypatch.setattr(VL, "score_geometry",
+                        lambda *a, **kw: geometry(*a, **kw, G=G))
+    qp, qtr, tp, ttr, t_L, _co, ss = make_inputs(Lq, Lt, B, seed=Lq + Lt)
+    if pad:        # a lane of padding only, as pack_templates pads a batch
+        tp[-1], ttr[-1] = 0.0, -TV.FLT_MAX
+    tp, ttr, tl = to_device_pack(tp, ttr, t_L, "cpu")
+    qp, qtr = torch.from_numpy(qp), torch.from_numpy(qtr)
     kw, pkw = {}, {}
     if mode == "lut":
+        lut, qidx, tidx, _dense = (torch.from_numpy(x) for x in
+                                   _ss_lut_inputs(Lq, Lt, B, seed=B))
         kw = VL.ss_table_args(lut, qidx, tidx, Lq, B, Lt, "cpu", "K6")
         pkw = dict(ss_lut=lut, ss_qidx=qidx, ss_tidx=tidx)
     elif mode == "dense":
-        kw = dict(ss=VL._lanes_last(dense, torch.float32))
-        pkw = dict(ss_score=dense)
+        kw = dict(ss=torch.from_numpy(ss))
+        pkw = dict(ss_score=kw["ss"])
     fast = mode == "fast"
     sh = VL._fast_shift(-0.03) if fast else -0.03
     got = VL.launch_score(qp, qtr, tp, ttr, sh, fast, mode, **kw)
@@ -145,6 +176,7 @@ def test_emulated_score_kernel_bit_identical(emulated, mode):
         qp, qtr, tp, ttr, tl, -0.03, si_mode="fast" if fast else "exact",
         **pkw)
     assert torch.equal(_bits(got), _bits(want))
+    assert torch.isfinite(got).all()
 
 
 def test_emulated_bt_entry_refuses_other_geometries(emulated, monkeypatch):

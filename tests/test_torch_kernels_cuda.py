@@ -1,11 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 the Viterbi kernels (K1, K2, K3, K6) bit for bit, the prefilter kernels (K4,
 K5) as integers — phase 1 of ``chip_smoke.py``, at small shapes, at the
-prefilter's path shape and at long queries; K2/K3 also at the edges of
-their wavefront (one row, a pass of G*R rows less one, exactly, plus
-one, at each group width G; one column; one template; a block not
-filled).  Needs a CUDA card; elsewhere every test skips.  On a machine
-with a card:
+prefilter's path shape and at long queries; K1/K6 and K2/K3 also at the
+edges of their wavefronts (one row, a pass of G*R rows less one,
+exactly, plus one, several passes, at each group width G; one column;
+fewer columns than lanes; one template; a block not filled; a lane of
+padding only).  Needs a CUDA card; elsewhere every test skips.  On a
+machine with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
 """
 
@@ -25,7 +26,7 @@ from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 from hhsuite_tpu_torch.search.prefilter import to_device_cs219
-from chip_smoke import bt_edge_shapes
+from chip_smoke import bt_edge_shapes, score_edge_shapes
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
@@ -43,8 +44,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _on(dev, shape, seed):
+def _on(dev, shape, seed, pad_last=False):
     qp, qtr, tp, ttr, t_L, co, ss = make_inputs(*shape, seed=seed)
+    if pad_last:     # a lane of padding only, as pack_templates pads
+        tp[-1], ttr[-1] = 0.0, -TV.FLT_MAX
     tp_d, ttr_d, tl_d = to_device_pack(tp, ttr, t_L, dev)
     return (torch.from_numpy(qp).to(dev), torch.from_numpy(qtr).to(dev),
             tp_d, ttr_d, tl_d, torch.from_numpy(co).to(dev),
@@ -57,7 +60,7 @@ def _same(a, b):
     return torch.equal(a, b)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [(512, 60, 12), (320, 384, 300)])
 @pytest.mark.parametrize("mode", ["fast", "exact"])
 def test_k1_kernel_bit_identical(cuda, shape, mode):
     qp, qtr, tp, ttr, tl, _co, _ss = _on(cuda, shape, 1)
@@ -172,10 +175,10 @@ def test_k3_query_longer_than_k2_takes(cuda, local):
     _check_bt(got, want, shape[0] + shape[1] + 1)
 
 
-# chip_smoke's K6 edge shapes (Lq, Lt, B): short queries (one partial
-# ROWS strip, one full strip plus one row, two strips plus one row), one
-# template, one template column; the LUT offsets reach both ends of the
-# table in every case
+# K6 at small shapes (Lq, Lt, B): short queries (one partial lane of 8
+# rows, one lane plus one row, two lanes plus one row), one template,
+# one template column; the table offsets reach both ends of the table in
+# every case
 K6_SHAPES = [(1, 40, 33), (9, 40, 33), (17, 50, 65), (37, 29, 1),
              (25, 1, 40)]
 
@@ -199,6 +202,28 @@ def test_k6_kernel_bit_identical(cuda, shape):
     torch.cuda.synchronize()
     assert _same(got, want) and _same(got_dense, got)
     assert _same(got_none, k1_exact)
+
+
+@pytest.mark.parametrize("G,Lq,Lt,B,pad", score_edge_shapes())
+@pytest.mark.parametrize("mode", ["fast", "exact", "table", "dense"])
+def test_score_kernel_wavefront_edges(cuda, monkeypatch, mode, G, Lq, Lt,
+                                      B, pad):
+    monkeypatch.setattr(VL, "score_geometry",
+                        functools.partial(VL.score_geometry, G=G))
+    qp, qtr, tp, ttr, tl, _co, ss = _on(cuda, (Lq, Lt, B), 20 + Lq,
+                                        pad_last=pad)
+    kw = {"table": _ss_table(cuda, (Lq, Lt, B), Lt),
+          "dense": dict(ss_score=ss)}.get(mode)
+    if kw is None:
+        got = viterbi_score_lanes_fused(qp, qtr, tp, ttr, tl, -0.03,
+                                        si_mode=mode)
+        want = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tl, -0.03,
+                                         si_mode=mode)
+    else:
+        got = viterbi_score_lanes(qp, qtr, tp, ttr, tl, -0.03, **kw)
+        want = viterbi_score_lanes_plain(qp, qtr, tp, ttr, tl, -0.03, **kw)
+    torch.cuda.synchronize()
+    assert _same(got, want) and torch.isfinite(got).all()
 
 
 PF_STAGES = {"K4": (PK.ungapped_scores, PK.ungapped_scores_plain,
