@@ -17,7 +17,8 @@ and no result line:
    registers and spill bytes of each wavefront kernel instantiation (the
    eight of ``vit_bt_kernel``, K2/K3, and the twelve of
    ``vit_score_kernel``, K1/K6: fast, exact, SS table and dense SS at G
-   = 8, 16, 32);
+   = 8, 16, 32) and of the prefilter kernels, and the prefilter kernels'
+   integer add / min / max instructions (``cuobjdump -sass``);
 1. each kernel against its plain PyTorch version on the card at the
    search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
    with altali masks, global, and with the SS table, K6 with the SS
@@ -27,7 +28,8 @@ and no result line:
    form and its table form bit-identical, K6 without SS equal to K1
    exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the
    prefilter kernels (K4, K5) int-identical at the path's shape and at
-   edge shapes; times from CUDA events;
+   edge shapes, K5 timed at each group width G = 8, 16, 32 and held at
+   its wavefront's edge shapes at each; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
    the reference's (tests/fixtures); ``hhsearch`` on the golden SS
@@ -48,7 +50,7 @@ and no result line:
    cold and warm: per round the prefilter survivors, templates, hits,
    stage times and the launches of K1-K5 (each must be > 0 over the
    run); K4 and K5 over the whole resident cs219 pack against their
-   plain versions; a profiled warm query;
+   plain versions; a profiled warm query, with K5's device time;
 6. ``hhsearch`` with default parameters (``-ssm 2``: SS in the DP) on the
    8192-template SS database with the family's SS-annotated query, cold
    and warm: as phase 4, with K1, K3 and K6 launched, and whether the
@@ -104,10 +106,15 @@ OPS_K6 = OPS_K1["exact"] + 1
 # INT32 rate of the H100 SXM: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock = 1.67e13 op/s
 PEAK_INT32 = 132 * 64 * 1.98e9
-# integer operations per DP cell, counted in csrc/prefilter.cu: K4 add,
-# min, subtract, max, running max; K5 vH 4, H0 1, G 3, F 1, H 1, E 5,
-# running max 1 (addressing and loop control not counted)
-OPS_K4, OPS_K5 = 5, 16
+# integer operations per DP cell, counted in csrc/prefilter.cu as Hopper
+# retires them: an add followed by a min or max against a third operand
+# (and a floor at 0) is one instruction (VIADDMNMX[.RELU], which ptxas
+# emits from plain max/min code; phase 0 prints the kernel's mix), so
+# K4 min(S + q, 255), max(t - off, 0), the running max: 3; K5
+# min(hdiag + q, 255), max(t - off, E), max(H0, F), H - gi, max(E - ge,
+# ., 0), H0 - gi, max(F - ge, ., 0), the running max: 8 (byte
+# extraction, addressing and loop control not counted)
+OPS_K4, OPS_K5 = 3, 8
 
 LQ, LT = 320, 384
 B_K1, B_K2, B_K3, B_SMALL = 8192, 4096, 1024, 64
@@ -714,11 +721,73 @@ def prefilter_table(rng, Lq, offset=50):
     return qc
 
 
+# K5's gap settings on the hhblits path: gap_init, gap_extend, offset
+K5_GAPS = (24, 4, 50)
+
+
+def k5_edge_shapes():
+    """K5's wavefront edges at each forced group width G (also the card
+    tests' and the CPU emulation's cases): (tag, G, Lq, Ld, B, lengths or
+    None for seeded ones, (gap_init, gap_extend, offset)).  One query
+    row; one pass of 8G rows exactly, plus one row, three passes; lengths
+    0, 1, G-1 and 3 beside 300 in one warp; a row of 255s across a pass
+    boundary; the gap settings (0, 0, 50) and (40, 12, 50); Lq = 1025,
+    the table read from global memory."""
+    out = []
+    for G in (8, 16, 32):
+        R = 8 * G
+        out += [("Lq=1", G, 1, 40, 6, None, K5_GAPS),
+                ("Lq=8G", G, R, 30, 5, None, K5_GAPS),
+                ("Lq=8G+1", G, R + 1, 30, 5, None, K5_GAPS),
+                ("3 passes", G, 2 * R + 1, 20, 3, None, K5_GAPS),
+                ("lengths 0/1/G-1/3 beside 300", G, R + 5, 300, 8,
+                 [0, 300, 1, 300, G - 1, 300, 3, 300], K5_GAPS),
+                ("row at 255 across passes", G, R + 20, 40, 6, None,
+                 K5_GAPS),
+                ("gaps 0/0/50", G, R + 3, 50, 7, None, (0, 0, 50)),
+                ("gaps 40/12/50", G, R + 3, 50, 7, None, (40, 12, 50)),
+                ("Lq=1025 global table", G, 1025, 24, 3, None, K5_GAPS)]
+    return out
+
+
+def k5_edge_inputs(case, seed):
+    """Seeded (table, states padded with 219, lengths) numpy inputs of a
+    :func:`k5_edge_shapes` case; the "row at 255" case puts a table row
+    of 255s at every fourth position."""
+    tag, _G, Lq, Ld, B, lens, _gaps = case
+    rng = np.random.default_rng(seed)
+    tab = prefilter_table(rng, Lq)
+    db = rng.integers(0, 219, (B, Ld)).astype(np.int32)
+    dl = np.asarray(lens if lens is not None
+                    else rng.integers(Ld // 2, Ld + 1, B), np.int32)
+    if tag.startswith("row at 255"):
+        tab[7] = 255
+        db[:, ::4] = 7
+    for b in range(B):
+        db[b, dl[b]:] = 219
+    return tab, db, dl
+
+
+@contextlib.contextmanager
+def forced_pf_width(G):
+    """K5 launched at group width G (None: the one pf_geometry picks)."""
+    from hhsuite_tpu_torch.ops import prefilter as P
+
+    geometry = P.pf_geometry
+    P.pf_geometry = lambda *a, **kw: geometry(*a, **kw, G=G)
+    try:
+        yield
+    finally:
+        P.pf_geometry = geometry
+
+
 def phase1_prefilter(dev):
     """K4 and K5 against their plain versions on the card, over the
     resident layout at the path's shape (B_PF long-tail sequences,
-    Lq = LQ_PF) and through the public wrappers at edge shapes; returns
-    the per-kernel records (without launch counts)."""
+    Lq = LQ_PF; K5 also timed at each group width) and through the
+    public wrappers at edge shapes, K5 also at its wavefront's edges at
+    each group width (:func:`k5_edge_shapes`); returns the per-kernel
+    records (without launch counts)."""
     import torch
 
     from hhsuite_tpu_torch.ops import prefilter as P
@@ -737,7 +806,7 @@ def phase1_prefilter(dev):
             ("K4", P.ungapped_scores_packed, P.ungapped_scores_plain, (50,),
              OPS_K4, "hhsuite_tpu/ops/prefilter_pallas.py:32"),
             ("K5", P.gapped_scores_packed, P.gapped_scores_plain,
-             (24, 4, 50), OPS_K5, "hhsuite_tpu/ops/prefilter_pallas2.py:37")):
+             K5_GAPS, OPS_K5, "hhsuite_tpu/ops/prefilter_pallas2.py:37")):
         counter = P.ungapped_scores if key == "K4" else P.gapped_scores
         n0 = counter.launches
         out_k = kern(qc, *rows, *args)
@@ -764,6 +833,20 @@ def phase1_prefilter(dev):
             source="hhsuite_tpu_torch/csrc/prefilter.cu", replaces=src,
             max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
+    geo = P.pf_geometry(B_PF, LQ_PF, float(lens.mean()))
+    scratch = P.cuda_lib().hh_pf_gapped_scratch_bytes(
+        LQ_PF, geo.G, pack.states.numel())
+    widths = {}
+    for G in (8, 16, 32):
+        with forced_pf_width(G):
+            widths[G] = cuda_ms(lambda: P.gapped_scores_packed(
+                qc, *rows, *K5_GAPS), 3)
+    log(f"phase1 K5 geometry: G={geo.G} (chosen), {geo.passes} passes of "
+        f"{geo.G * geo.R} rows, {geo.groups} sequences a block, scratch "
+        f"{scratch} bytes; at G = 8/16/32: "
+        + " / ".join(f"{widths[G]:.3f}" for G in (8, 16, 32)) + " ms")
+    recs["K5"].update(G=geo.G, R=geo.R, passes=geo.passes,
+                      G_ms={f"G={G}": ms for G, ms in widths.items()})
     del pack, rows
 
     # edge shapes through the public (B, Ld) wrappers; 1024 is the
@@ -788,7 +871,7 @@ def phase1_prefilter(dev):
                              for x in (tab, db, dl))
         for key, kern, plain, args in (
                 ("K4", P.ungapped_scores, P.ungapped_scores_plain, (50,)),
-                ("K5", P.gapped_scores, P.gapped_scores_plain, (24, 4, 50))):
+                ("K5", P.gapped_scores, P.gapped_scores_plain, K5_GAPS)):
             got = kern(tab_d, db_d, dl_d, *args)
             want = plain(tab_d, db_d, dl_d, *args)
             streamed = kern(tab_d, db_d, torch.full_like(dl_d, Ld), *args)
@@ -800,6 +883,28 @@ def phase1_prefilter(dev):
                 raise AssertionError(f"{key} {tag}: empty rows score")
         log(f"phase1 K4/K5 edge {tag} (Lq={Lq} Ld={Ld} B={B}): "
             f"int-identical, padding streamed == stopped at db_len")
+    t0 = time.perf_counter()
+    cases = k5_edge_shapes()
+    for case in cases:
+        tag, G, Lq, Ld, B, _lens, gaps = case
+        tab_d, db_d, dl_d = (torch.from_numpy(x).to(dev)
+                             for x in k5_edge_inputs(case, seed=Lq + G))
+        with forced_pf_width(G):
+            got = P.gapped_scores(tab_d, db_d, dl_d, *gaps)
+            streamed = P.gapped_scores(tab_d, db_d,
+                                       torch.full_like(dl_d, Ld), *gaps)
+        want = P.gapped_scores_plain(tab_d, db_d, dl_d, *gaps)
+        if not (torch.equal(got, want) and torch.equal(got, streamed)):
+            raise AssertionError(f"K5 wavefront edge G={G} {tag} (Lq={Lq} "
+                                 f"Ld={Ld} B={B}): kernel != plain version")
+        if tag.startswith("row at 255") and int(got.max()) != 255 - gaps[2]:
+            raise AssertionError(f"K5 wavefront edge G={G} {tag}: no "
+                                 "saturation")
+    log(f"phase1 K5 wavefront edges: {len(cases)} cases int-identical "
+        "(Lq 1, 8G, 8G+1, 16G+1, 1025 from global memory; lengths 0/1/"
+        "G-1/3 beside 300 in a warp; a row of 255s across passes; gaps "
+        "0/0/50 and 40/12/50) at G = 8, 16, 32 "
+        f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
     return recs
 
@@ -1177,9 +1282,13 @@ def phase5_hhblits(base, query_text, counters, dev):
             f"{plain_s:.2f} s, int-identical")
     del rows
     torch.cuda.empty_cache()
-    profile_query("phase5", lambda: run_hhblits(
+    by_name = profile_query("phase5", lambda: run_hhblits(
         Parameters.hhblits_defaults(), query_text, db, "bench_query"),
         counters)
+    k5 = [v for name, v in by_name.items() if "pf_gapped_kernel" in name]
+    log(f"phase5 K5 device time: {sum(us for us, _n in k5) / 1e3:.3f} ms "
+        f"over {sum(n for _us, n in k5)} launches (profiled warm query; "
+        f"counter K5 {read(counters)['K5']})")
     return launches
 
 
@@ -1390,6 +1499,9 @@ def phase0_builds() -> dict:
     for ln in infos["prefilter"].log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             log("phase0 ptxas prefilter: " + ln.strip())
+    for name, mix in sass_minmax(infos["prefilter"].path).items():
+        log(f"phase0 SASS {name}: " + ", ".join(
+            f"{op} {n}" for op, n in sorted(mix.items())))
     usage = wave_instantiations(ptxas_usage(infos["viterbi"].log))
     for key, (regs, st, ld) in usage.items():
         log(f"phase0 {key}: {regs} registers, {st} bytes spill stores, "
@@ -1401,6 +1513,33 @@ def phase0_builds() -> dict:
                              f"and {n_score} vit_score_kernel "
                              "instantiations, not 8 and 12")
     return usage
+
+
+def sass_minmax(so_path: str) -> dict:
+    """The integer add / min / max instructions of each prefilter kernel
+    in a built library, from ``cuobjdump -sass``: {kernel: {opcode:
+    count}} (opcodes IADD3, VIADD, IMNMX, VIMNMX, VIADDMNMX and their
+    variants)."""
+    import collections
+    import re
+
+    from hhsuite_tpu_torch.device import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"(pf_\w+_kernel)ILb([01])E", body.split("\n", 1)[0])
+        if not m:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"((?:IADD3|VIADD|IMNMX|VIMNMX|VIADDMNMX)"
+                         r"[A-Z0-9_.]*)", body)
+        out[f"{m.group(1)}<{m.group(2)}>"] = dict(collections.Counter(ops))
+    if not out:
+        raise AssertionError(f"phase0: no prefilter kernel in {so_path}")
+    return out
 
 
 def phase_ok(n: int, t0: float) -> float:

@@ -23,6 +23,10 @@ int scalars; they return (B,) int32.  :func:`ungapped_scores_packed` and
 :class:`search.prefilter.ResidentCs219Pack` instead: one flat uint8
 state array with per-row int64 offsets and int32 lengths.
 
+K4 walks one sequence per thread.  K5 gives each sequence a group of G
+lanes that sweep an anti-diagonal wavefront, 8 query rows a lane, as the
+Viterbi kernels do (see the kernel source); :func:`pf_geometry` picks G.
+
 On CPU tensors the wrappers run the plain PyTorch versions (a loop over
 database positions on (B, Lq) int32 tensors, as the JAX scans); on CUDA
 tensors they launch the kernel or raise.  ``ungapped_scores.launches``
@@ -33,13 +37,35 @@ points.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+
+from .viterbi_lanes import WaveGeometry, _wave_geometry
 
 NS = 220          # AS219 states + ANY (the padding state)
 NEG = -(10 ** 9)
 
 _BOUND = {}
+
+
+def bind(lib):
+    """Set the C signatures of ``csrc/prefilter.cu``'s entry points on a
+    loaded library."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hh_pf_ungapped.argtypes = [P, I, P, P, P, I, I, P, P]
+    lib.hh_pf_ungapped.restype = I
+    lib.hh_pf_gapped_passes.argtypes = [I, I]
+    lib.hh_pf_gapped_passes.restype = I
+    lib.hh_pf_gapped_pitch.argtypes = [I]
+    lib.hh_pf_gapped_pitch.restype = I
+    lib.hh_pf_gapped_scratch_bytes.argtypes = [I, I, L]
+    lib.hh_pf_gapped_scratch_bytes.restype = L
+    lib.hh_pf_gapped.argtypes = [P, I, P, P, P, I, I, I, I, I, P, P, P]
+    lib.hh_pf_gapped.restype = I
+    lib.hh_pf_error_string.argtypes = [I]
+    lib.hh_pf_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def cuda_lib():
@@ -48,15 +74,7 @@ def cuda_lib():
 
     lib, _info = cuda_library("prefilter")
     if not _BOUND.get(id(lib)):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.hh_pf_ungapped.argtypes = [P, I, P, P, P, I, I, P, P]
-        lib.hh_pf_ungapped.restype = I
-        lib.hh_pf_gapped_slots.argtypes = [I, I]
-        lib.hh_pf_gapped_slots.restype = I
-        lib.hh_pf_gapped.argtypes = [P, I, P, P, P, I, I, I, I, P, I, P, P]
-        lib.hh_pf_gapped.restype = I
-        lib.hh_pf_error_string.argtypes = [I]
-        lib.hh_pf_error_string.restype = ctypes.c_char_p
+        bind(lib)
         _BOUND[id(lib)] = True
     return lib
 
@@ -153,24 +171,32 @@ def packed_plain(fn, qc, states, offsets, lengths, *args, chunk=4096):
 
 # ---------------------------------------------------------- kernels ----
 
-def _table(qc, dev) -> torch.Tensor:
-    """(220, Lq) table as uint8 bytes on ``dev``, zero-padded to a
+def _table(qc, dev, pitch: Optional[int] = None) -> torch.Tensor:
+    """(220, Lq) table as uint8 bytes on ``dev``, each state's row
+    zero-padded to ``pitch`` bytes (default Lq) and the whole to a
     multiple of 16 bytes (the kernels copy it in 16-byte words)."""
     qc = torch.as_tensor(qc)
     if qc.dim() != 2 or qc.shape[0] != NS or qc.shape[1] < 1:
         raise ValueError(f"query table must be ({NS}, Lq >= 1), "
                          f"not {tuple(qc.shape)}")
-    n = qc.numel()
+    Lq = qc.shape[1]
+    pitch = pitch or Lq
+    n = NS * pitch
     buf = torch.zeros(-(-n // 16) * 16, dtype=torch.uint8, device=dev)
-    buf[:n] = qc.to(dev).reshape(-1).to(torch.uint8)
+    buf[:n].view(NS, pitch)[:, :Lq] = qc.to(dev).to(torch.uint8)
     return buf
 
 
-def _packed_args(states, offsets, lengths):
+def _require_cuda(states) -> torch.device:
     dev = states.device
     if dev.type != "cuda":
         raise ValueError(f"prefilter kernels take CPU or CUDA tensors, "
                          f"not {dev}")
+    return dev
+
+
+def _packed_args(states, offsets, lengths):
+    dev = _require_cuda(states)
     if states.dtype != torch.uint8 or offsets.dtype != torch.int64 \
             or lengths.dtype != torch.int32:
         raise ValueError("resident layout: states uint8, offsets int64, "
@@ -204,6 +230,19 @@ def _launch_ungapped(qc, states, offsets, lengths, offset):
     return out
 
 
+def pf_geometry(B: int, Lq: int, mean_len: float,
+                G: Optional[int] = None) -> WaveGeometry:
+    """Launch geometry of K5 for B database sequences of mean length
+    ``mean_len`` and a query of Lq rows: G lanes a sequence (8, 16 or 32;
+    the one given, else the least estimated time by the Viterbi
+    wavefronts' cost model, ``ops/viterbi_lanes.py:_wave_geometry``, with
+    the sequence's length in place of the template's), 8 rows a lane,
+    256 / G sequences a block.  At Lq = 300: G = 8 (5 passes of 64 rows)
+    for a full stage-2 batch, 32 for a few sequences."""
+    return _wave_geometry(B, Lq, max(1, round(mean_len)), G, (8, 16, 32),
+                          "K5 gapped_scores")
+
+
 def _launch_gapped(qc, states, offsets, lengths, gap_init, gap_extend,
                    offset):
     gi, ge, off = int(gap_init), int(gap_extend), int(offset)
@@ -213,16 +252,20 @@ def _launch_gapped(qc, states, offsets, lengths, gap_init, gap_extend,
     states, offsets, lengths = _packed_args(states, offsets, lengths)
     dev = states.device
     lib = cuda_lib()
-    table = _table(qc, dev)
     Lq = int(torch.as_tensor(qc).shape[1])
     B = int(lengths.shape[0])
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    slots = lib.hh_pf_gapped_slots(Lq, B)
-    _check(lib, min(slots, 0), "K5 gapped_scores (occupancy)")
-    scratch = torch.empty(max(slots, 1) * Lq, dtype=torch.int16, device=dev)
+    if B == 0:
+        return out
+    geo = pf_geometry(B, Lq, int(lengths.sum()) / B)
+    table = _table(qc, dev, lib.hh_pf_gapped_pitch(Lq))
+    nbytes = lib.hh_pf_gapped_scratch_bytes(Lq, geo.G, states.numel())
+    scratch = (torch.empty(nbytes // 2, dtype=torch.int16, device=dev)
+               if nbytes > 0 else None)
     rc = lib.hh_pf_gapped(table.data_ptr(), Lq, states.data_ptr(),
                           offsets.data_ptr(), lengths.data_ptr(), B, gi, ge,
-                          off, scratch.data_ptr(), slots, out.data_ptr(),
+                          off, geo.G, None if scratch is None
+                          else scratch.data_ptr(), out.data_ptr(),
                           _stream(dev))
     _check(lib, rc, "K5 gapped_scores")
     gapped_scores.launches += 1

@@ -1,14 +1,16 @@
 // A CPU stand-in for the part of the CUDA runtime that
-// hhsuite_tpu_torch/csrc/viterbi.cu uses, so that its kernels compile
-// with g++ and run on the CPU (tests/test_torch_cuda_emulation.py).
+// hhsuite_tpu_torch/csrc/viterbi.cu and csrc/prefilter.cu use, so that
+// their kernels compile with g++ and run on the CPU
+// (tests/test_torch_cuda_emulation.py,
+// tests/test_torch_prefilter_emulation.py).
 //
 // Every CUDA thread of a block is a std::thread; blocks run one after
 // another, so a function-scope `static` array is the block's shared
-// memory.  __syncthreads is a barrier over the block, a warp shuffle a
-// write-barrier-read-barrier over the warp's 32 threads.  The f32
-// intrinsics are plain IEEE operations (compile with -ffp-contract=off,
-// as nvcc's -fmad=false).  The launch syntax and cp.async are rewritten
-// by the test before compiling.
+// memory.  __syncthreads is a barrier over the block, __syncwarp one over
+// the warp, a warp shuffle a write-barrier-read-barrier over the warp's
+// 32 threads.  The f32 intrinsics are plain IEEE operations (compile
+// with -ffp-contract=off, as nvcc's -fmad=false).  The launch syntax and
+// cp.async are rewritten by the test before compiling.
 #pragma once
 #include <barrier>
 #include <cstdint>
@@ -30,14 +32,17 @@
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -52,6 +57,9 @@ inline thread_local EmuBlock* emu_block;
 
 inline float* emu_dynamic_smem() { return emu_block->smem; }
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline void __syncwarp() {
+  emu_block->warps[threadIdx.x / 32]->bar.arrive_and_wait();
+}
 
 template <class T>
 inline T emu_shfl(T v, int src) {
@@ -84,12 +92,28 @@ inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+template <class T>
+inline T __ldg(const T* p) { return *p; }
 
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a card of two SMs holding one block each
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K,
+                                                                 int,
+                                                                 size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 // <<<grid, block, smem, stream>>>: every block in turn, its threads
@@ -111,6 +135,7 @@ inline void emu_launch(dim3 grid, dim3 block, int smem, cudaStream_t,
         threadIdx = dim3(t);
         blockIdx = dim3(bx);
         blockDim = block;
+        gridDim = grid;
         emu_block = &ctx;
         body();
       });

@@ -38,8 +38,9 @@ EMU = os.path.join(os.path.dirname(__file__), "cuda_emu")
 def emulated_source(src: str) -> str:
     """The CUDA source with its launches, dynamic shared memory and
     cp.async rewritten for the CPU stand-in."""
-    src = src.replace("extern __shared__ __align__(16) float smem[];",
-                      "float* smem = emu_dynamic_smem();")
+    src = re.sub(r"extern __shared__ __align__\(16\) (\w+) smem\[\];",
+                 r"\1* smem = reinterpret_cast<\1*>(emu_dynamic_smem());",
+                 src)
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\((.*?)\);",
                  lambda m: "emu_launch(%s, [&] { %s(%s); });"
                  % (m.group(2), m.group(1), m.group(3)), src, flags=re.S)
@@ -53,20 +54,26 @@ def emulated_source(src: str) -> str:
     return src
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
+def build_emulated(name: str, tmp_path_factory) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` compiled with g++ against the stand-in and
+    loaded (skips where g++ is missing)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
     d = tmp_path_factory.mktemp("cuda_emu")
-    with open(os.path.join(CSRC_DIR, "viterbi.cu")) as f:
-        (d / "viterbi_emu.cpp").write_text(emulated_source(f.read()))
-    so = d / "libviterbi_emu.so"
+    with open(os.path.join(CSRC_DIR, name + ".cu")) as f:
+        (d / f"{name}_emu.cpp").write_text(emulated_source(f.read()))
+    so = d / f"lib{name}_emu.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
                     "-shared", "-pthread", "-I", EMU, "-o", str(so),
-                    str(d / "viterbi_emu.cpp")], check=True,
+                    str(d / f"{name}_emu.cpp")], check=True,
                    capture_output=True, text=True)
-    return VL.bind(ctypes.CDLL(str(so)))
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    return VL.bind(build_emulated("viterbi", tmp_path_factory))
 
 
 @pytest.fixture

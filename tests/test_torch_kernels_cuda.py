@@ -5,7 +5,9 @@ prefilter's path shape and at long queries; K1/K6 and K2/K3 also at the
 edges of their wavefronts (one row, a pass of G*R rows less one,
 exactly, plus one, several passes, at each group width G; one column;
 fewer columns than lanes; one template; a block not filled; a lane of
-padding only).  Needs a CUDA card; elsewhere every test skips.  On a
+padding only), and K5 at its wavefront's edges at each group width,
+with the sequences of one warp far apart in length.  Needs a CUDA card;
+elsewhere every test skips.  On a
 machine with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
 """
@@ -26,7 +28,8 @@ from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 from hhsuite_tpu_torch.search.prefilter import to_device_cs219
-from chip_smoke import bt_edge_shapes, score_edge_shapes
+from chip_smoke import (bt_edge_shapes, k5_edge_inputs, k5_edge_shapes,
+                        score_edge_shapes)
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
@@ -247,6 +250,47 @@ def test_prefilter_kernel_int_identical(cuda, shape, stage):
     streamed = kern(qc, db, torch.full_like(dl, db.shape[1]), *args)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got, streamed)
+
+
+def _force_pf_width(monkeypatch, G):
+    geometry = PK.pf_geometry
+    monkeypatch.setattr(PK, "pf_geometry",
+                        lambda *a, **kw: geometry(*a, **kw, G=G))
+
+
+@pytest.mark.parametrize("case", k5_edge_shapes(),
+                         ids=lambda c: f"G{c[1]}-{c[0]}")
+def test_k5_kernel_wavefront_edges(cuda, monkeypatch, case):
+    tag, G, Lq, _Ld, _B, _lens, gaps = case
+    _force_pf_width(monkeypatch, G)
+    qc, db, dl = (torch.from_numpy(x).to(cuda)
+                  for x in k5_edge_inputs(case, seed=Lq + G))
+    got = PK.gapped_scores(qc, db, dl, *gaps)
+    want = PK.gapped_scores_plain(qc, db, dl, *gaps)
+    streamed = PK.gapped_scores(qc, db, torch.full_like(dl, db.shape[1]),
+                                *gaps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, streamed)
+    if tag.startswith("row at 255"):
+        assert int(got.max()) == 255 - gaps[2]
+
+
+@pytest.mark.parametrize("G", [8, 16, 32])
+def test_k5_warp_of_far_apart_lengths(cuda, monkeypatch, G):
+    """Unsorted rows, so the groups of a warp end thousands of steps
+    apart (lengths 0 to 2000), at Lq = 300 (5, 3 or 2 passes)."""
+    _force_pf_width(monkeypatch, G)
+    rng = np.random.default_rng(G)
+    lens = rng.choice([0, 1, 3, 40, 300, 1200, 2000], 96)
+    qc, db, _dl = pf_inputs(300, 2000, 96, G)
+    for b, n in enumerate(lens):
+        db[b, n:] = 219
+    qc, db, dl = (torch.from_numpy(x).to(cuda)
+                  for x in (qc, db, lens.astype(np.int32)))
+    got = PK.gapped_scores(qc, db, dl, 24, 4, 50)
+    want = PK.gapped_scores_plain(qc, db, dl, 24, 4, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.max()) > 0
 
 
 @pytest.mark.parametrize("stage", ["K4", "K5"])
