@@ -17,8 +17,9 @@ and no result line:
    registers and spill bytes of each wavefront kernel instantiation (the
    eight of ``vit_bt_kernel``, K2/K3, and the twelve of
    ``vit_score_kernel``, K1/K6: fast, exact, SS table and dense SS at G
-   = 8, 16, 32) and of the prefilter kernels, and the prefilter kernels'
-   integer add / min / max instructions (``cuobjdump -sass``);
+   = 8, 16, 32) and of the prefilter kernels (the four instantiations of
+   ``pf_wave_kernel``: K4 and K5, table in shared or global memory), and
+   their integer add / min / max instructions (``cuobjdump -sass``);
 1. each kernel against its plain PyTorch version on the card at the
    search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
    with altali masks, global, and with the SS table, K6 with the SS
@@ -28,7 +29,7 @@ and no result line:
    form and its table form bit-identical, K6 without SS equal to K1
    exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the
    prefilter kernels (K4, K5) int-identical at the path's shape and at
-   edge shapes, K5 timed at each group width G = 8, 16, 32 and held at
+   edge shapes, each timed at each group width G = 8, 16, 32 and held at
    its wavefront's edge shapes at each; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
@@ -50,7 +51,8 @@ and no result line:
    cold and warm: per round the prefilter survivors, templates, hits,
    stage times and the launches of K1-K5 (each must be > 0 over the
    run); K4 and K5 over the whole resident cs219 pack against their
-   plain versions; a profiled warm query, with K5's device time;
+   plain versions; a profiled warm query, with K4's device time from CUDA
+   events around its launches and K5's from the profiler;
 6. ``hhsearch`` with default parameters (``-ssm 2``: SS in the DP) on the
    8192-template SS database with the family's SS-annotated query, cold
    and warm: as phase 4, with K1, K3 and K6 launched, and whether the
@@ -60,10 +62,10 @@ and no result line:
 A profiled warm query (phases 4-6) traces the card's activity alone
 (``torch.profiler``, CUDA activities): device time by kernel and the
 device's busy share; on the same query CUDA events around each launch of
-the sweep kernel (K1/K6) give its device time over exactly the launches
-that the counters count (the phase fails when the two count different
-launches), beside the profiler's reading of the same kernel.  Each
-phase prints its wall seconds.  The last lines are the
+the sweep kernel (K1/K6), and in phase 5 of K4, give its device time over
+exactly the launches that the counters count (the phase fails when the
+two count different launches), beside the profiler's reading of the same
+kernel.  Each phase prints its wall seconds.  The last lines are the
 card (``nvidia-smi``), one JSON object with the per-kernel numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -106,15 +108,21 @@ OPS_K6 = OPS_K1["exact"] + 1
 # INT32 rate of the H100 SXM: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock = 1.67e13 op/s
 PEAK_INT32 = 132 * 64 * 1.98e9
-# integer operations per DP cell, counted in csrc/prefilter.cu as Hopper
-# retires them: an add followed by a min or max against a third operand
-# (and a floor at 0) is one instruction (VIADDMNMX[.RELU], which ptxas
-# emits from plain max/min code; phase 0 prints the kernel's mix), so
-# K4 min(S + q, 255), max(t - off, 0), the running max: 3; K5
-# min(hdiag + q, 255), max(t - off, E), max(H0, F), H - gi, max(E - ge,
-# ., 0), H0 - gi, max(F - ge, ., 0), the running max: 8 (byte
-# extraction, addressing and loop control not counted)
-OPS_K4, OPS_K5 = 3, 8
+# integer instructions per DP cell the prefilter's function needs on
+# Hopper: an add followed by a min or max against a third operand (and a
+# floor at 0) is one instruction (VIADDMNMX[.RELU]), and every value of
+# both stages lies in [0, 255], so two cells go in one register as s16x2
+# (VIADDMNMX.S16x2[.RELU], VIMNMX.S16x2.RELU: one instruction for two
+# cells).  K4 min(hdiag + q, 255), max(t - off, 0), the running max: 3
+# instructions for a pair of cells, 1.5 a cell; K5 min(hdiag + q, 255),
+# max(t - off, E), max(H0, F), H - gi, max(E - ge, ., 0), H0 - gi,
+# max(F - ge, ., 0), the running max: 8 for a pair, 4 a cell (byte
+# extraction, addressing and loop control not counted).  The card's reading
+# (hhsuite_tpu_torch/tools/int_rate.py, H100 80GB HBM3, 700.00 W): IADD3,
+# VIADDMNMX and the three s16x2 forms each issue at 63.4-63.9 a SM and
+# clock, 1.657e13-1.671e13/s, so PEAK_INT32 is the rate of all of them.  The kernels keep
+# the 32-bit form (the s16x2 build was no faster: PERF.md).
+OPS_K4, OPS_K5 = 1.5, 4
 
 LQ, LT = 320, 384
 B_K1, B_K2, B_K3, B_SMALL = 8192, 4096, 1024, 64
@@ -750,10 +758,22 @@ def k5_edge_shapes():
     return out
 
 
+def k4_edge_shapes():
+    """K4's wavefront edges at each forced group width G: K5's cases
+    (:func:`k5_edge_shapes`) but the gap settings, with K4's offset alone
+    as the stage's arguments: one query row; 8G rows, 8G+1, three passes;
+    lengths 0, 1, G-1 and 3 beside 300 in one warp; a row of 255s across
+    a pass boundary (S saturates at 255 - off); Lq = 1025 from global
+    memory."""
+    return [(tag, G, Lq, Ld, B, lens, gaps[2:])
+            for tag, G, Lq, Ld, B, lens, gaps in k5_edge_shapes()
+            if not tag.startswith("gaps")]
+
+
 def k5_edge_inputs(case, seed):
     """Seeded (table, states padded with 219, lengths) numpy inputs of a
-    :func:`k5_edge_shapes` case; the "row at 255" case puts a table row
-    of 255s at every fourth position."""
+    :func:`k5_edge_shapes` or :func:`k4_edge_shapes` case; the "row at
+    255" case puts a table row of 255s at every fourth position."""
     tag, _G, Lq, Ld, B, lens, _gaps = case
     rng = np.random.default_rng(seed)
     tab = prefilter_table(rng, Lq)
@@ -770,7 +790,8 @@ def k5_edge_inputs(case, seed):
 
 @contextlib.contextmanager
 def forced_pf_width(G):
-    """K5 launched at group width G (None: the one pf_geometry picks)."""
+    """K4 and K5 launched at group width G (None: the one pf_geometry
+    picks)."""
     from hhsuite_tpu_torch.ops import prefilter as P
 
     geometry = P.pf_geometry
@@ -784,10 +805,11 @@ def forced_pf_width(G):
 def phase1_prefilter(dev):
     """K4 and K5 against their plain versions on the card, over the
     resident layout at the path's shape (B_PF long-tail sequences,
-    Lq = LQ_PF; K5 also timed at each group width) and through the
-    public wrappers at edge shapes, K5 also at its wavefront's edges at
-    each group width (:func:`k5_edge_shapes`); returns the per-kernel
-    records (without launch counts)."""
+    Lq = LQ_PF; both also timed at each group width) and through the
+    public wrappers at edge shapes, both also at their wavefront's edges
+    at each group width (:func:`k4_edge_shapes`,
+    :func:`k5_edge_shapes`); returns the per-kernel records (without
+    launch counts)."""
     import torch
 
     from hhsuite_tpu_torch.ops import prefilter as P
@@ -834,19 +856,20 @@ def phase1_prefilter(dev):
             max_abs_err=float((out_k - out_p).abs().max()), ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None)
     geo = P.pf_geometry(B_PF, LQ_PF, float(lens.mean()))
-    scratch = P.cuda_lib().hh_pf_gapped_scratch_bytes(
+    scratch = P.cuda_lib().hh_pf_scratch_bytes(
         LQ_PF, geo.G, pack.states.numel())
-    widths = {}
-    for G in (8, 16, 32):
-        with forced_pf_width(G):
-            widths[G] = cuda_ms(lambda: P.gapped_scores_packed(
-                qc, *rows, *K5_GAPS), 3)
-    log(f"phase1 K5 geometry: G={geo.G} (chosen), {geo.passes} passes of "
-        f"{geo.G * geo.R} rows, {geo.groups} sequences a block, scratch "
-        f"{scratch} bytes; at G = 8/16/32: "
-        + " / ".join(f"{widths[G]:.3f}" for G in (8, 16, 32)) + " ms")
-    recs["K5"].update(G=geo.G, R=geo.R, passes=geo.passes,
-                      G_ms={f"G={G}": ms for G, ms in widths.items()})
+    for key, kern, args in (("K4", P.ungapped_scores_packed, (50,)),
+                            ("K5", P.gapped_scores_packed, K5_GAPS)):
+        widths = {}
+        for G in (8, 16, 32):
+            with forced_pf_width(G):
+                widths[G] = cuda_ms(lambda: kern(qc, *rows, *args), 3)
+        log(f"phase1 {key} geometry: G={geo.G} (chosen), {geo.passes} "
+            f"passes of {geo.G * geo.R} rows, {geo.groups} sequences a "
+            f"block, scratch {scratch} bytes; at G = 8/16/32: "
+            + " / ".join(f"{widths[G]:.3f}" for G in (8, 16, 32)) + " ms")
+        recs[key].update(G=geo.G, R=geo.R, passes=geo.passes,
+                         G_ms={f"G={G}": ms for G, ms in widths.items()})
     del pack, rows
 
     # edge shapes through the public (B, Ld) wrappers; 1024 is the
@@ -883,28 +906,34 @@ def phase1_prefilter(dev):
                 raise AssertionError(f"{key} {tag}: empty rows score")
         log(f"phase1 K4/K5 edge {tag} (Lq={Lq} Ld={Ld} B={B}): "
             f"int-identical, padding streamed == stopped at db_len")
-    t0 = time.perf_counter()
-    cases = k5_edge_shapes()
-    for case in cases:
-        tag, G, Lq, Ld, B, _lens, gaps = case
-        tab_d, db_d, dl_d = (torch.from_numpy(x).to(dev)
-                             for x in k5_edge_inputs(case, seed=Lq + G))
-        with forced_pf_width(G):
-            got = P.gapped_scores(tab_d, db_d, dl_d, *gaps)
-            streamed = P.gapped_scores(tab_d, db_d,
-                                       torch.full_like(dl_d, Ld), *gaps)
-        want = P.gapped_scores_plain(tab_d, db_d, dl_d, *gaps)
-        if not (torch.equal(got, want) and torch.equal(got, streamed)):
-            raise AssertionError(f"K5 wavefront edge G={G} {tag} (Lq={Lq} "
-                                 f"Ld={Ld} B={B}): kernel != plain version")
-        if tag.startswith("row at 255") and int(got.max()) != 255 - gaps[2]:
-            raise AssertionError(f"K5 wavefront edge G={G} {tag}: no "
-                                 "saturation")
-    log(f"phase1 K5 wavefront edges: {len(cases)} cases int-identical "
-        "(Lq 1, 8G, 8G+1, 16G+1, 1025 from global memory; lengths 0/1/"
-        "G-1/3 beside 300 in a warp; a row of 255s across passes; gaps "
-        "0/0/50 and 40/12/50) at G = 8, 16, 32 "
-        f"({time.perf_counter() - t0:.1f} s)")
+    for key, kern, plain, cases, what in (
+            ("K4", P.ungapped_scores, P.ungapped_scores_plain,
+             k4_edge_shapes(), ""),
+            ("K5", P.gapped_scores, P.gapped_scores_plain, k5_edge_shapes(),
+             "; gaps 0/0/50 and 40/12/50")):
+        t0 = time.perf_counter()
+        for case in cases:
+            tag, G, Lq, Ld, B, _lens, args = case
+            tab_d, db_d, dl_d = (torch.from_numpy(x).to(dev)
+                                 for x in k5_edge_inputs(case, seed=Lq + G))
+            with forced_pf_width(G):
+                got = kern(tab_d, db_d, dl_d, *args)
+                streamed = kern(tab_d, db_d, torch.full_like(dl_d, Ld),
+                                *args)
+            want = plain(tab_d, db_d, dl_d, *args)
+            if not (torch.equal(got, want) and torch.equal(got, streamed)):
+                raise AssertionError(f"{key} wavefront edge G={G} {tag} "
+                                     f"(Lq={Lq} Ld={Ld} B={B}): kernel != "
+                                     "plain version")
+            if tag.startswith("row at 255") and \
+                    int(got.max()) != 255 - args[-1]:
+                raise AssertionError(f"{key} wavefront edge G={G} {tag}: "
+                                     "no saturation")
+        log(f"phase1 {key} wavefront edges: {len(cases)} cases "
+            "int-identical (Lq 1, 8G, 8G+1, 16G+1, 1025 from global memory; "
+            "lengths 0/1/G-1/3 beside 300 in a warp; a row of 255s across "
+            f"passes{what}) at G = 8, 16, 32 "
+            f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
     return recs
 
@@ -1284,8 +1313,8 @@ def phase5_hhblits(base, query_text, counters, dev):
     torch.cuda.empty_cache()
     by_name = profile_query("phase5", lambda: run_hhblits(
         Parameters.hhblits_defaults(), query_text, db, "bench_query"),
-        counters)
-    k5 = [v for name, v in by_name.items() if "pf_gapped_kernel" in name]
+        counters, timed=("sweep (K1/K6)", "K4"))
+    k5 = [v for name, v in by_name.items() if "pf_wave_kernel<true" in name]
     log(f"phase5 K5 device time: {sum(us for us, _n in k5) / 1e3:.3f} ms "
         f"over {sum(n for _us, n in k5)} launches (profiled warm query; "
         f"counter K5 {read(counters)['K5']})")
@@ -1353,55 +1382,68 @@ def phase6_ss(base, query_text, counters):
     return n
 
 
+# kernels timed by CUDA events around each launch on a profiled query:
+# label -> (ops module, library entry, counters, profiler name)
+TIMED = {"sweep (K1/K6)": ("viterbi_lanes", "hh_vit_score", ("K1", "K6"),
+                           "vit_score_kernel"),
+         "K4": ("prefilter", "hh_pf_ungapped", ("K4",),
+                "pf_wave_kernel<false")}
+
+
 @contextlib.contextmanager
-def sweep_events():
-    """CUDA events around each launch of the score-sweep kernel (K1/K6),
-    by the launch code's library with ``hh_vit_score`` wrapped; yields
-    the list of (host seconds, start event, end event), one a launch."""
+def launch_events(label):
+    """CUDA events around each launch of a :data:`TIMED` kernel, by its
+    launch code's library with the kernel's entry wrapped; yields the
+    list of (host seconds, start event, end event), one a launch."""
+    import importlib
+
     import torch
 
-    from hhsuite_tpu_torch.ops import viterbi_lanes as VL
+    module, entry, _keys, _name = TIMED[label]
+    ops = importlib.import_module(f"hhsuite_tpu_torch.ops.{module}")
+    lib, launches = ops.cuda_lib(), []
 
-    lib, launches = VL.cuda_lib(), []
+    def timed(*args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rc = getattr(lib, entry)(*args)
+        e1.record()
+        launches.append((time.perf_counter(), e0, e1))
+        return rc
 
     class Timed:
         def __getattr__(self, name):
-            return getattr(lib, name)
+            return timed if name == entry else getattr(lib, name)
 
-        def hh_vit_score(self, *args):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            rc = lib.hh_vit_score(*args)
-            e1.record()
-            launches.append((time.perf_counter(), e0, e1))
-            return rc
-
-    orig, VL.cuda_lib = VL.cuda_lib, Timed
+    orig, ops.cuda_lib = ops.cuda_lib, Timed
     try:
         yield launches
     finally:
-        VL.cuda_lib = orig
+        ops.cuda_lib = orig
 
 
-def profile_query(tag, run, counters):
+def profile_query(tag, run, counters, timed=("sweep (K1/K6)",)):
     """One more warm query under torch.profiler, tracing the card's
     activity alone: device time by kernel and the device's busy share,
     read from the raw trace (torch's event tree over ~10^5 kernels took
     tens of seconds to build).  On the same query the launch counters,
-    and CUDA events around each sweep launch (:func:`sweep_events`): the
-    sweep's device time over exactly the launches the counters count (K1
-    + K6), beside the profiler's reading of the same kernel; fails when
-    the events' count and the counters' disagree.  Returns {kernel name:
-    (microseconds, launches)}."""
+    and CUDA events around each launch of the ``timed`` kernels
+    (:func:`launch_events`; the sweep, K1 + K6, by default): their
+    device time over exactly the launches the counters count, beside the
+    profiler's reading of the same kernel; fails when the events' count
+    and the counters' disagree.  Returns {kernel name: (microseconds,
+    launches)}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reset(counters)
     torch.cuda.synchronize()
-    with sweep_events() as launches, \
-            profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with contextlib.ExitStack() as stack:
+        events = {label: stack.enter_context(launch_events(label))
+                  for label in timed}
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1417,8 +1459,9 @@ def profile_query(tag, run, counters):
         by_name[ev.name()] = (us + ev.duration_ns() / 1e3, k + 1)
         t = ev.start_ns()
         first["any"] = min(first.get("any", t), t)
-        if "vit_score_kernel" in ev.name():
-            first["sweep"] = min(first.get("sweep", t), t)
+        for label in timed:
+            if TIMED[label][3] in ev.name():
+                first[label] = min(first.get(label, t), t)
     busy = sum(us for us, _n in by_name.values()) / 1e6
     log(f"{tag} profiled: {wall:.3f} s wall (profiler on), device busy "
         f"{busy:.3f} s ({100 * busy / wall:.1f}%), "
@@ -1427,25 +1470,28 @@ def profile_query(tag, run, counters):
     for name, (us, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:10]:
         log(f"{tag} device: {us / 1e3:10.2f} ms {k:7d} x {name[:70]}")
-    ev_ms = [e0.elapsed_time(e1) for _t, e0, e1 in launches]
-    sweep = [v for name, v in by_name.items() if "vit_score_kernel" in name]
-    p_us, p_n = sum(us for us, _k in sweep), sum(k for _us, k in sweep)
-    log(f"{tag} sweep (K1/K6) device time: {sum(ev_ms):.3f} ms over "
-        f"{len(ev_ms)} launches (CUDA events; counters K1 {n['K1']}, K6 "
-        f"{n['K6']}): " + " ".join(f"{ms:.3f}" for ms in ev_ms)
-        + f"; profiler {p_us / 1e3:.3f} ms over {p_n} launches")
-    if len(ev_ms) != n["K1"] + n["K6"]:
-        raise AssertionError(f"{tag}: {len(ev_ms)} timed sweep launches, "
-                             f"counters {n}")
-    if p_n != len(ev_ms):
-        into = {k: f"{(v - trace.trace_start_ns()) / 1e9:.3f} s"
-                for k, v in first.items()}
-        log(f"{tag} the profiler recorded {p_n} of {len(ev_ms)} sweep "
-            "launches: they left the host at "
-            + ", ".join(f"{t - t0:.3f}" for t, _e0, _e1 in launches)
-            + " s into the query; the trace's first device activity "
-            f"{into.get('any', 'none')}, its first sweep kernel "
-            f"{into.get('sweep', 'none')} into it")
+    into = {k: f"{(v - trace.trace_start_ns()) / 1e9:.3f} s"
+            for k, v in first.items()}
+    for label, launches in events.items():
+        _module, _entry, keys, kname = TIMED[label]
+        ev_ms = [e0.elapsed_time(e1) for _t, e0, e1 in launches]
+        seen = [v for name, v in by_name.items() if kname in name]
+        p_us, p_n = sum(us for us, _k in seen), sum(k for _us, k in seen)
+        log(f"{tag} {label} device time: {sum(ev_ms):.3f} ms over "
+            f"{len(ev_ms)} launches (CUDA events; counters "
+            + ", ".join(f"{k} {n[k]}" for k in keys) + "): "
+            + " ".join(f"{ms:.3f}" for ms in ev_ms)
+            + f"; profiler {p_us / 1e3:.3f} ms over {p_n} launches")
+        if len(ev_ms) != sum(n[k] for k in keys):
+            raise AssertionError(f"{tag}: {len(ev_ms)} timed {label} "
+                                 f"launches, counters {n}")
+        if p_n != len(ev_ms):
+            log(f"{tag} the profiler recorded {p_n} of {len(ev_ms)} {label} "
+                "launches: they left the host at "
+                + ", ".join(f"{t - t0:.3f}" for t, _e0, _e1 in launches)
+                + " s into the query; the trace's first device activity "
+                f"{into.get('any', 'none')}, its first {label} kernel "
+                f"{into.get(label, 'none')} into it")
     return by_name
 
 
@@ -1516,10 +1562,10 @@ def phase0_builds() -> dict:
 
 
 def sass_minmax(so_path: str) -> dict:
-    """The integer add / min / max instructions of each prefilter kernel
-    in a built library, from ``cuobjdump -sass``: {kernel: {opcode:
-    count}} (opcodes IADD3, VIADD, IMNMX, VIMNMX, VIADDMNMX and their
-    variants)."""
+    """The integer add / min / max and byte-permute instructions of each
+    prefilter kernel in a built library, from ``cuobjdump -sass``:
+    {kernel: {opcode: count}} (opcodes IADD3, VIADD, IMNMX, VIMNMX,
+    VIADDMNMX, PRMT and their variants)."""
     import collections
     import re
 
@@ -1530,13 +1576,16 @@ def sass_minmax(so_path: str) -> dict:
                           text=True, check=True, timeout=120).stdout
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"(pf_\w+_kernel)ILb([01])E", body.split("\n", 1)[0])
+        m = re.search(r"pf_wave_kernelILb([01])ELb([01])E",
+                      body.split("\n", 1)[0])
         if not m:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"((?:IADD3|VIADD|IMNMX|VIMNMX|VIADDMNMX)"
-                         r"[A-Z0-9_.]*)", body)
-        out[f"{m.group(1)}<{m.group(2)}>"] = dict(collections.Counter(ops))
+                         r"((?:IADD3|VIADD|IMNMX|VIMNMX|VIADDMNMX|PRMT)"
+                         r"[A-Za-z0-9_.]*)", body)
+        stage = "K5" if m.group(1) == "1" else "K4"
+        out[f"{stage} pf_wave_kernel<{m.group(1)}, {m.group(2)}>"] = dict(
+            collections.Counter(ops))
     if not out:
         raise AssertionError(f"phase0: no prefilter kernel in {so_path}")
     return out

@@ -77,14 +77,15 @@ class BuildInfo:
         self.cached = cached
 
 
-def build_cuda_library(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>-<hash>.so``.
+def build_cuda_library(name: str, src_dir: str = CSRC_DIR) -> BuildInfo:
+    """Compile ``<src_dir>/<name>.cu`` (``csrc/`` by default) into
+    ``build/lib<name>-<hash>.so``.
 
     The file name carries a hash of the source and flags, so an edited
     source rebuilds and an unchanged one is reused.  The compiler writes
     to a per-process temporary name that is renamed into place, so
     concurrent builds never load a half-written library."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
+    src = os.path.join(src_dir, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]

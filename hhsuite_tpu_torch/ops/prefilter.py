@@ -18,14 +18,15 @@ and K5 hhsuite_tpu/ops/prefilter_pallas2.py:gapped_scores_pallas; both
 must equal the JAX scan versions (hhsuite_tpu/ops/prefilter.py) as
 integers.  The public wrappers keep the JAX signatures: ``qc`` (220, Lq)
 int in [0, 255], ``db`` (B, Ld) int padded with 219, ``db_len`` (B,),
-int scalars; they return (B,) int32.  :func:`ungapped_scores_packed` and
+int scalars >= 0 (a negative gap or offset raises ValueError on either
+device); they return (B,) int32.  :func:`ungapped_scores_packed` and
 :func:`gapped_scores_packed` take the resident layout of
 :class:`search.prefilter.ResidentCs219Pack` instead: one flat uint8
 state array with per-row int64 offsets and int32 lengths.
 
-K4 walks one sequence per thread.  K5 gives each sequence a group of G
-lanes that sweep an anti-diagonal wavefront, 8 query rows a lane, as the
-Viterbi kernels do (see the kernel source); :func:`pf_geometry` picks G.
+Both kernels are one body: each sequence gets a group of G lanes that
+sweep an anti-diagonal wavefront, 8 query rows a lane, as the Viterbi
+kernels do (see the kernel source); :func:`pf_geometry` picks G.
 
 On CPU tensors the wrappers run the plain PyTorch versions (a loop over
 database positions on (B, Lq) int32 tensors, as the JAX scans); on CUDA
@@ -53,14 +54,14 @@ def bind(lib):
     """Set the C signatures of ``csrc/prefilter.cu``'s entry points on a
     loaded library."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hh_pf_ungapped.argtypes = [P, I, P, P, P, I, I, P, P]
+    lib.hh_pf_ungapped.argtypes = [P, I, P, P, P, I, I, I, P, P, P]
     lib.hh_pf_ungapped.restype = I
-    lib.hh_pf_gapped_passes.argtypes = [I, I]
-    lib.hh_pf_gapped_passes.restype = I
-    lib.hh_pf_gapped_pitch.argtypes = [I]
-    lib.hh_pf_gapped_pitch.restype = I
-    lib.hh_pf_gapped_scratch_bytes.argtypes = [I, I, L]
-    lib.hh_pf_gapped_scratch_bytes.restype = L
+    lib.hh_pf_passes.argtypes = [I, I]
+    lib.hh_pf_passes.restype = I
+    lib.hh_pf_pitch.argtypes = [I]
+    lib.hh_pf_pitch.restype = I
+    lib.hh_pf_scratch_bytes.argtypes = [I, I, L]
+    lib.hh_pf_scratch_bytes.restype = L
     lib.hh_pf_gapped.argtypes = [P, I, P, P, P, I, I, I, I, I, P, P, P]
     lib.hh_pf_gapped.restype = I
     lib.hh_pf_error_string.argtypes = [I]
@@ -87,6 +88,14 @@ def _check(lib, rc: int, what: str) -> None:
 
 # ---------------------------------------------------------- plain ----
 
+def _nonneg(what, args):
+    """Both devices take gaps and offset >= 0 only: the kernels keep
+    every score in [0, 255], one byte at the pass boundary."""
+    if any(int(a) < 0 for a in args):
+        raise ValueError(f"{what}: gaps and offset must be >= 0 (got "
+                         f"{', '.join(str(int(a)) for a in args)})")
+
+
 def _steps(qc, db, db_len):
     """Common set-up of the plain versions: the int32 table on the
     database's device, the state columns and the validity masks."""
@@ -102,7 +111,8 @@ def _steps(qc, db, db_len):
 def ungapped_scores_plain(qc, db, db_len, offset):
     """Plain PyTorch version of K4 (any device): the JAX scan
     (hhsuite_tpu/ops/prefilter.py:ungapped_scores), one step per database
-    position on (B, Lq) int32 tensors."""
+    position on (B, Lq) int32 tensors; ``offset`` >= 0."""
+    _nonneg("K4 ungapped_scores", (offset,))
     qc, db, ln, Ld = _steps(qc, db, db_len)
     B, Lq = db.shape[0], qc.shape[1]
     off = int(offset)
@@ -119,7 +129,9 @@ def ungapped_scores_plain(qc, db, db_len, offset):
 def gapped_scores_plain(qc, db, db_len, gap_init, gap_extend, offset):
     """Plain PyTorch version of K5 (any device): the JAX scan
     (hhsuite_tpu/ops/prefilter.py:gapped_scores), with the intra-column
-    F fixpoint as an exclusive prefix max of ``H0[k] - gi + ge*k``."""
+    F fixpoint as an exclusive prefix max of ``H0[k] - gi + ge*k``; gaps
+    and offset >= 0."""
+    _nonneg("K5 gapped_scores", (gap_init, gap_extend, offset))
     qc, db, ln, Ld = _steps(qc, db, db_len)
     B, Lq = db.shape[0], qc.shape[1]
     gi, ge, off = int(gap_init), int(gap_extend), int(offset)
@@ -171,16 +183,11 @@ def packed_plain(fn, qc, states, offsets, lengths, *args, chunk=4096):
 
 # ---------------------------------------------------------- kernels ----
 
-def _table(qc, dev, pitch: Optional[int] = None) -> torch.Tensor:
+def _table(qc, dev, pitch: int) -> torch.Tensor:
     """(220, Lq) table as uint8 bytes on ``dev``, each state's row
-    zero-padded to ``pitch`` bytes (default Lq) and the whole to a
-    multiple of 16 bytes (the kernels copy it in 16-byte words)."""
-    qc = torch.as_tensor(qc)
-    if qc.dim() != 2 or qc.shape[0] != NS or qc.shape[1] < 1:
-        raise ValueError(f"query table must be ({NS}, Lq >= 1), "
-                         f"not {tuple(qc.shape)}")
+    zero-padded to ``pitch`` bytes and the whole to a multiple of 16
+    bytes (the kernels copy it in 16-byte words)."""
     Lq = qc.shape[1]
-    pitch = pitch or Lq
     n = NS * pitch
     buf = torch.zeros(-(-n // 16) * 16, dtype=torch.uint8, device=dev)
     buf[:n].view(NS, pitch)[:, :Lq] = qc.to(dev).to(torch.uint8)
@@ -214,62 +221,60 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_ungapped(qc, states, offsets, lengths, offset):
-    states, offsets, lengths = _packed_args(states, offsets, lengths)
-    dev = states.device
-    lib = cuda_lib()
-    table = _table(qc, dev)
-    Lq = int(torch.as_tensor(qc).shape[1])
-    B = int(lengths.shape[0])
-    out = torch.empty(B, dtype=torch.int32, device=dev)
-    rc = lib.hh_pf_ungapped(table.data_ptr(), Lq, states.data_ptr(),
-                            offsets.data_ptr(), lengths.data_ptr(), B,
-                            int(offset), out.data_ptr(), _stream(dev))
-    _check(lib, rc, "K4 ungapped_scores")
-    ungapped_scores.launches += 1
-    return out
-
-
-def pf_geometry(B: int, Lq: int, mean_len: float,
-                G: Optional[int] = None) -> WaveGeometry:
-    """Launch geometry of K5 for B database sequences of mean length
-    ``mean_len`` and a query of Lq rows: G lanes a sequence (8, 16 or 32;
-    the one given, else the least estimated time by the Viterbi
-    wavefronts' cost model, ``ops/viterbi_lanes.py:_wave_geometry``, with
-    the sequence's length in place of the template's), 8 rows a lane,
-    256 / G sequences a block.  At Lq = 300: G = 8 (5 passes of 64 rows)
-    for a full stage-2 batch, 32 for a few sequences."""
+def pf_geometry(B: int, Lq: int, mean_len: float, G: Optional[int] = None,
+                what: str = "prefilter kernel") -> WaveGeometry:
+    """Launch geometry of K4 or K5 (``what`` names it in errors) for B
+    database sequences of mean length ``mean_len`` and a query of Lq rows:
+    G lanes a sequence (8, 16 or 32; the one given, else the least
+    estimated time by the Viterbi wavefronts' cost model,
+    ``ops/viterbi_lanes.py:_wave_geometry``, with the sequence's length in
+    place of the template's), 8 rows a lane, 256 / G sequences a block.
+    At Lq = 300: G = 8 (5 passes of 64 rows) for the whole resident pack
+    and a full stage-2 batch, 32 for a few sequences."""
     return _wave_geometry(B, Lq, max(1, round(mean_len)), G, (8, 16, 32),
-                          "K5 gapped_scores")
+                          what)
 
 
-def _launch_gapped(qc, states, offsets, lengths, gap_init, gap_extend,
-                   offset):
-    gi, ge, off = int(gap_init), int(gap_extend), int(offset)
-    if gi < 0 or ge < 0 or off < 0:
-        raise ValueError("K5 takes gap_init, gap_extend, offset >= 0 "
-                         f"(got {gi}, {ge}, {off})")
+def _launch(entry, what, counter, qc, states, offsets, lengths, *args):
+    """Launch K4 or K5 (``entry`` of the library, with the stage's
+    integer ``args`` after the lengths) over the resident layout."""
+    _nonneg(what, args)
+    qc = torch.as_tensor(qc)
+    if qc.dim() != 2 or qc.shape[0] != NS or qc.shape[1] < 1:
+        raise ValueError(f"query table must be ({NS}, Lq >= 1), "
+                         f"not {tuple(qc.shape)}")
     states, offsets, lengths = _packed_args(states, offsets, lengths)
     dev = states.device
     lib = cuda_lib()
-    Lq = int(torch.as_tensor(qc).shape[1])
+    Lq = int(qc.shape[1])
     B = int(lengths.shape[0])
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return out
-    geo = pf_geometry(B, Lq, int(lengths.sum()) / B)
-    table = _table(qc, dev, lib.hh_pf_gapped_pitch(Lq))
-    nbytes = lib.hh_pf_gapped_scratch_bytes(Lq, geo.G, states.numel())
+    geo = pf_geometry(B, Lq, int(lengths.sum()) / B, what=what)
+    table = _table(qc, dev, lib.hh_pf_pitch(Lq))
+    nbytes = lib.hh_pf_scratch_bytes(Lq, geo.G, states.numel())
     scratch = (torch.empty(nbytes // 2, dtype=torch.int16, device=dev)
                if nbytes > 0 else None)
-    rc = lib.hh_pf_gapped(table.data_ptr(), Lq, states.data_ptr(),
-                          offsets.data_ptr(), lengths.data_ptr(), B, gi, ge,
-                          off, geo.G, None if scratch is None
-                          else scratch.data_ptr(), out.data_ptr(),
-                          _stream(dev))
-    _check(lib, rc, "K5 gapped_scores")
-    gapped_scores.launches += 1
+    rc = getattr(lib, entry)(
+        table.data_ptr(), Lq, states.data_ptr(), offsets.data_ptr(),
+        lengths.data_ptr(), B, *(int(a) for a in args), geo.G,
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        _stream(dev))
+    _check(lib, rc, what)
+    counter.launches += 1
     return out
+
+
+def _launch_ungapped(qc, states, offsets, lengths, offset):
+    return _launch("hh_pf_ungapped", "K4 ungapped_scores", ungapped_scores,
+                   qc, states, offsets, lengths, offset)
+
+
+def _launch_gapped(qc, states, offsets, lengths, gap_init, gap_extend,
+                   offset):
+    return _launch("hh_pf_gapped", "K5 gapped_scores", gapped_scores, qc,
+                   states, offsets, lengths, gap_init, gap_extend, offset)
 
 
 def _as_packed(db, db_len):

@@ -32,7 +32,6 @@
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 struct dim3 {
   unsigned x, y, z;
@@ -42,7 +41,7 @@ struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim;
 
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -101,19 +100,6 @@ inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-// a card of two SMs holding one block each
-inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 2;
-  return cudaSuccess;
-}
-template <class K>
-inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K,
-                                                                 int,
-                                                                 size_t) {
-  *n = 1;
-  return cudaSuccess;
-}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 // <<<grid, block, smem, stream>>>: every block in turn, its threads
@@ -135,7 +121,6 @@ inline void emu_launch(dim3 grid, dim3 block, int smem, cudaStream_t,
         threadIdx = dim3(t);
         blockIdx = dim3(bx);
         blockDim = block;
-        gridDim = grid;
         emu_block = &ctx;
         body();
       });

@@ -5,8 +5,8 @@ prefilter's path shape and at long queries; K1/K6 and K2/K3 also at the
 edges of their wavefronts (one row, a pass of G*R rows less one,
 exactly, plus one, several passes, at each group width G; one column;
 fewer columns than lanes; one template; a block not filled; a lane of
-padding only), and K5 at its wavefront's edges at each group width,
-with the sequences of one warp far apart in length.  Needs a CUDA card;
+padding only), and K4 and K5 at their wavefront's edges at each group
+width, with the sequences of one warp far apart in length.  Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
@@ -28,8 +28,8 @@ from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 from hhsuite_tpu_torch.search.prefilter import to_device_cs219
-from chip_smoke import (bt_edge_shapes, k5_edge_inputs, k5_edge_shapes,
-                        score_edge_shapes)
+from chip_smoke import (bt_edge_shapes, k4_edge_shapes, k5_edge_inputs,
+                        k5_edge_shapes, score_edge_shapes)
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
@@ -258,27 +258,34 @@ def _force_pf_width(monkeypatch, G):
                         lambda *a, **kw: geometry(*a, **kw, G=G))
 
 
-@pytest.mark.parametrize("case", k5_edge_shapes(),
-                         ids=lambda c: f"G{c[1]}-{c[0]}")
-def test_k5_kernel_wavefront_edges(cuda, monkeypatch, case):
-    tag, G, Lq, _Ld, _B, _lens, gaps = case
+@pytest.mark.parametrize("stage,case",
+                         [("K5", c) for c in k5_edge_shapes()]
+                         + [("K4", c) for c in k4_edge_shapes()],
+                         ids=lambda c: c if isinstance(c, str)
+                         else f"G{c[1]}-{c[0]}")
+def test_prefilter_kernel_wavefront_edges(cuda, monkeypatch, stage, case):
+    tag, G, Lq, _Ld, _B, _lens, args = case
+    kern, plain, _packed, _args = PF_STAGES[stage]
     _force_pf_width(monkeypatch, G)
     qc, db, dl = (torch.from_numpy(x).to(cuda)
                   for x in k5_edge_inputs(case, seed=Lq + G))
-    got = PK.gapped_scores(qc, db, dl, *gaps)
-    want = PK.gapped_scores_plain(qc, db, dl, *gaps)
-    streamed = PK.gapped_scores(qc, db, torch.full_like(dl, db.shape[1]),
-                                *gaps)
+    n = kern.launches
+    got = kern(qc, db, dl, *args)
+    assert kern.launches == n + 1
+    want = plain(qc, db, dl, *args)
+    streamed = kern(qc, db, torch.full_like(dl, db.shape[1]), *args)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got, streamed)
     if tag.startswith("row at 255"):
-        assert int(got.max()) == 255 - gaps[2]
+        assert int(got.max()) == 255 - args[-1]
 
 
 @pytest.mark.parametrize("G", [8, 16, 32])
-def test_k5_warp_of_far_apart_lengths(cuda, monkeypatch, G):
+@pytest.mark.parametrize("stage", ["K4", "K5"])
+def test_prefilter_warp_of_far_apart_lengths(cuda, monkeypatch, stage, G):
     """Unsorted rows, so the groups of a warp end thousands of steps
     apart (lengths 0 to 2000), at Lq = 300 (5, 3 or 2 passes)."""
+    kern, plain, _packed, args = PF_STAGES[stage]
     _force_pf_width(monkeypatch, G)
     rng = np.random.default_rng(G)
     lens = rng.choice([0, 1, 3, 40, 300, 1200, 2000], 96)
@@ -287,10 +294,11 @@ def test_k5_warp_of_far_apart_lengths(cuda, monkeypatch, G):
         db[b, n:] = 219
     qc, db, dl = (torch.from_numpy(x).to(cuda)
                   for x in (qc, db, lens.astype(np.int32)))
-    got = PK.gapped_scores(qc, db, dl, 24, 4, 50)
-    want = PK.gapped_scores_plain(qc, db, dl, 24, 4, 50)
+    got = kern(qc, db, dl, *args)
+    want = plain(qc, db, dl, *args)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(got.max()) > 0
+    assert not got[dl == 0].any()
 
 
 @pytest.mark.parametrize("stage", ["K4", "K5"])

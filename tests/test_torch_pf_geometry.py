@@ -1,12 +1,13 @@
-"""The launch geometry of the gapped prefilter kernel (K5,
-``ops/prefilter.py:pf_geometry``), by which the kernel
+"""The launch geometry of the prefilter kernels (K4 and K5, one
+wavefront body; ``ops/prefilter.py:pf_geometry``), by which the kernel
 (``csrc/prefilter.cu``) maps query rows: G lanes a database sequence, R =
 8 rows a lane, passes of G*R rows, 256 threads a block.  Every query row
 goes to exactly one (pass, lane, row), G follows the cost model at the
 hhblits path's shapes, the passes, table pitch and scratch size the C
 entries report (compiled for the CPU as in
 ``test_torch_prefilter_emulation.py``) agree with it, and ``hh_pf_gapped``
-refuses any other width and any argument it cannot run.
+and ``hh_pf_ungapped`` refuse any other width and any argument they
+cannot run.
 """
 
 import pytest
@@ -69,10 +70,10 @@ def test_entry_reports_the_geometry(pf_emu_lib, G, Lq):  # noqa: F811
     """Passes, table pitch and scratch bytes from the compiled source."""
     geo = P.pf_geometry(100, Lq, 300, G=G)
     lib = pf_emu_lib
-    assert lib.hh_pf_gapped_passes(Lq, G) == geo.passes
-    assert lib.hh_pf_gapped_pitch(Lq) == -(-Lq // geo.R) * geo.R
+    assert lib.hh_pf_passes(Lq, G) == geo.passes
+    assert lib.hh_pf_pitch(Lq) == -(-Lq // geo.R) * geo.R
     n = 3 * 10 ** 9                     # past 2^31: the 2^20 pack x 10
-    assert lib.hh_pf_gapped_scratch_bytes(Lq, G, n) == (
+    assert lib.hh_pf_scratch_bytes(Lq, G, n) == (
         2 * n if geo.passes > 1 else 0)
 
 
@@ -85,8 +86,8 @@ def test_entry_refuses_other_widths(pf_emulated, monkeypatch,  # noqa: F811
                         lambda *a, **kw: geometry(*a, **kw)._replace(G=G))
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         P._launch_gapped(qc, *P._as_packed(db, dl), 24, 4, 50)
-    assert P.cuda_lib().hh_pf_gapped_passes(20, G) == -1
-    assert P.cuda_lib().hh_pf_gapped_scratch_bytes(20, G, 30) == -1
+    assert P.cuda_lib().hh_pf_passes(20, G) == -1
+    assert P.cuda_lib().hh_pf_scratch_bytes(20, G, 30) == -1
 
 
 def test_entry_refuses_what_it_cannot_run(pf_emu_lib):  # noqa: F811
@@ -106,3 +107,59 @@ def test_entry_refuses_what_it_cannot_run(pf_emu_lib):  # noqa: F811
     assert call(ge=-1) == INVALID
     assert call(off=-1) == INVALID
     assert call(B=0) == 0                         # nothing to launch
+
+
+def test_geometry_names_the_kernel():
+    with pytest.raises(ValueError, match="K4 ungapped_scores"):
+        P.pf_geometry(4, 10, 50, G=12, what="K4 ungapped_scores")
+
+
+@pytest.mark.parametrize("G", [0, 4, 12, 64])
+def test_k4_entry_refuses_other_widths(pf_emulated, monkeypatch,  # noqa: F811
+                                       G):
+    qc, db, dl = (torch.from_numpy(x) for x in make_inputs(20, 10, 3, 5))
+    geometry = P.pf_geometry
+    monkeypatch.setattr(P, "pf_geometry",
+                        lambda *a, **kw: geometry(*a, **kw)._replace(G=G))
+    with pytest.raises(RuntimeError, match="K4 ungapped_scores: CUDA launch"):
+        P._launch_ungapped(qc, *P._as_packed(db, dl), 50)
+
+
+def test_k4_entry_refuses_what_it_cannot_run(pf_emu_lib):  # noqa: F811
+    """hh_pf_ungapped's own checks, before it touches any pointer: a
+    width other than 8, 16 or 32, an empty query, several passes with no
+    scratch row, a negative offset; nothing to launch for no sequence."""
+    f = pf_emu_lib.hh_pf_ungapped
+    p = torch.zeros(4).data_ptr()
+
+    def call(Lq=20, G=8, off=50, scratch=None, B=3):
+        return f(p, Lq, p, p, p, B, off, G, scratch, p, None)
+
+    for G in (0, 4, 12, 64):
+        assert call(G=G) == INVALID
+    assert call(Lq=0) == INVALID
+    assert call(Lq=-3) == INVALID
+    assert call(Lq=65, G=8) == INVALID            # 2 passes, no scratch
+    assert call(Lq=257, G=32) == INVALID
+    assert call(off=-1) == INVALID
+    assert call(B=0) == 0                         # nothing to launch
+
+
+def test_k4_wrapper_refuses_a_negative_offset(pf_emulated):  # noqa: F811
+    """S past 255 would not fit the pass boundary's byte: the wrapper
+    refuses before the entry is called."""
+    qc, db, dl = (torch.from_numpy(x) for x in make_inputs(20, 10, 3, 5))
+    with pytest.raises(ValueError, match="K4 ungapped_scores"):
+        P._launch_ungapped(qc, *P._as_packed(db, dl), -1)
+
+
+@pytest.mark.parametrize("stage", ["K4", "K5"])
+def test_plain_versions_refuse_a_negative_setting(stage):
+    """The CPU path refuses what the card's refuses: a negative offset
+    (K4) or gap (K5)."""
+    qc, db, dl = (torch.from_numpy(x) for x in make_inputs(20, 10, 3, 5))
+    with pytest.raises(ValueError, match=stage):
+        if stage == "K4":
+            P.ungapped_scores(qc, db, dl, -1)
+        else:
+            P.gapped_scores(qc, db, dl, 24, -1, 50)
