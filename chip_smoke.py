@@ -732,6 +732,347 @@ def prefilter_table(rng, Lq, offset=50):
 # K5's gap settings on the hhblits path: gap_init, gap_extend, offset
 K5_GAPS = (24, 4, 50)
 
+# realign (R1-R4): the search's shift and mact, the path's chunk of 256
+# hits at Lq = 300 and the padded template width of the 8192 family
+REALIGN_SHIFT, REALIGN_MACT = -0.03, 0.3501
+B_RE, LQ_RE, LT_RE = 256, 300, 384
+
+
+def realign_edge_shapes():
+    """Edges of R1-R4: (tag, Lq, Lt_pad, B, exclusion bands, SS, local,
+    extras); extras "pad" makes the last lane a padding lane (no
+    template, every cell but column 0 off, as a chunk is padded),
+    "empty" closes every row of lane 1 below row 1 (its MAC cell lies
+    in row 1, which the walk's pre-masking stops: an empty walk)."""
+    return [("Wj < T", 12, 20, 3, 0, False, True, ""),
+            ("Wj % T != 0, padded lane", 9, 140, 3, 2, True, True, "pad"),
+            ("Lq = 1", 1, 30, 2, 0, False, True, ""),
+            ("global, ragged t_L", 15, 40, 4, 3, True, False, "pad"),
+            ("3 columns a thread, global", 10, 300, 2, 1, False, False, ""),
+            ("empty walk", 7, 128, 3, 0, True, True, "empty,pad")]
+
+
+def realign_inputs(Lq, Lt_pad, B, P, ss, seed, device, extras=""):
+    """Seeded inputs of one realign chunk in the search path's staging:
+    query profile and linear transitions; templates as noisy copies of
+    query stretches (true lengths between Lt_pad/2 and Lt_pad, zeros
+    past them); the cell-off corridor built by ``realign_mask_device``
+    from RealignMaskSpec-style intervals of a seeded Viterbi path (the
+    +-40 band, its rectangle and the min-overlap corner) and of P seeded
+    exclusion paths (+-2 bands); with ``ss`` dense SS factors and the
+    boundary factors.  Returns a dict of tensors on ``device`` and
+    kmax."""
+    import torch
+
+    from hhsuite_tpu_torch.ops.posterior_batch import realign_mask_device
+    from hhsuite_tpu_torch.ops.viterbi import band_intervals
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    Wj = Lt_pad + 1
+
+    def trans(n):
+        t = rng.dirichlet([6.0, 1, 1], n)
+        g = rng.dirichlet([3.0, 1], (n, 2))
+        return np.stack([t[:, 0], t[:, 1], t[:, 2], g[:, 0, 0], g[:, 0, 1],
+                         g[:, 1, 0], g[:, 1, 1]], axis=1).astype(f32)
+
+    qp = rng.dirichlet(np.full(20, 0.4), Lq + 2).astype(f32)
+    qtr = trans(Lq + 2)
+    t_L = rng.integers(max(1, Lt_pad // 2), Lt_pad + 1, B).astype(np.int32)
+    t_L[0] = Lt_pad
+    tp = np.zeros((B, Lt_pad + 2, 20), f32)
+    ttr = np.zeros((B, Lt_pad + 2, 7), f32)
+    rect = np.zeros((B, 4), np.int32)
+    corner = np.zeros(B, np.int32)
+    lo_fc = np.ones((B, Wj), np.int16)
+    hi_fc = np.zeros((B, Wj), np.int16)
+    lo_fr = np.ones((B, Lq + 1), np.int16)
+    hi_fr = np.zeros((B, Lq + 1), np.int16)
+    lo_ec = np.ones((B, P, Wj), np.int16)
+    hi_ec = np.zeros((B, P, Wj), np.int16)
+    lo_er = np.ones((B, P, Lq + 1), np.int16)
+    hi_er = np.zeros((B, P, Lq + 1), np.int16)
+    n_real = B - 1 if "pad" in extras else B
+
+    def path(L, off):
+        j = np.arange(1, L + 1)
+        i = j + off
+        keep = (i >= 1) & (i <= Lq)
+        if not keep.any():
+            i, j = np.array([1]), np.array([1])
+        else:
+            i, j = i[keep], j[keep]
+        return i[::-1], j[::-1]          # backtrace order, as hit.i/j
+
+    for b in range(n_real):
+        L = int(t_L[b])
+        # the template's diagonal overlaps at least half the shorter
+        h = min(L, Lq) // 2
+        off = int(rng.integers(1 - L + h, max(Lq - h, 1 - L + h) + 1))
+        rows = np.clip(np.arange(L + 2) + off, 0, Lq + 1)
+        noise = rng.dirichlet(np.full(20, 0.4), L + 2)
+        tp[b, : L + 2] = (0.9 * qp[rows] + 0.1 * noise) / 0.05
+        ttr[b, : L + 2] = trans(L + 2)
+        pi, pj = path(L, off)
+        rect[b] = (pi[-1], pj[-1], pi[0], pj[0])
+        min_overlap = min(60, int(0.333 * min(Lq, L)) + 1)
+        corner[b] = max(L + 1 - min_overlap, 0)
+        iv = band_intervals(pi, pj, 40, Lq, L, Lq + 1, L + 1)
+        lo_fc[b, : L + 1], hi_fc[b, : L + 1], lo_fr[b], hi_fr[b] = iv
+        for p in range(P):
+            ei, ej = path(L, off + int(rng.integers(-30, 31)))
+            iv = band_intervals(ei, ej, 2, Lq, L, Lq + 1, L + 1)
+            lo_ec[b, p, : L + 1], hi_ec[b, p, : L + 1] = iv[:2]
+            lo_er[b, p], hi_er[b, p] = iv[2:]
+    if "pad" in extras:
+        t_L[-1] = 0
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    co = realign_mask_device(*(dev(x) for x in (
+        rect, corner, t_L, lo_fc, hi_fc, lo_fr, hi_fr, lo_ec, hi_ec, lo_er,
+        hi_er)))
+    if "empty" in extras:
+        co[1, 2:] = True
+    out = dict(qp=dev(qp), qtr=dev(qtr), tp=dev(tp), ttr=dev(ttr), co=co,
+               t_L=dev(t_L), ss_f=None, ss0=None, kmax=Lq + Lt_pad + 2)
+    if ss:
+        out["ss_f"] = dev(np.exp2(rng.uniform(-1, 1, (B, Lq + 1, Wj))
+                                  ).astype(f32))
+        out["ss0"] = dev(np.exp2(rng.uniform(-1, 1, B)).astype(f32))
+    return out
+
+
+def finite_err(a, b) -> float:
+    """max |a - b| over the cells finite on both sides; inf where one side
+    is finite and the other is not (NaN and inf cells the two share are
+    left to the bit comparison)."""
+    import torch
+
+    fa, fb = a.isfinite(), b.isfinite()
+    if not torch.equal(fa, fb):
+        return float("inf")
+    d = (a[fa].double() - b[fb].double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def realign_check(x, local, tag):
+    """R1-R4 on the card against their plain versions on the same inputs
+    (R1-R3 bit for bit, R4 byte for byte), each fed the plain version's
+    outputs of the pass before.  Returns the plain outputs (fwd, scales,
+    pfwd, p_mm, b_mac, i2, j2, score, payload) and each kernel's measured
+    difference from its plain version: R1 and R2 :func:`finite_err` over
+    their f32 outputs, R3 the count of b_mac, i2 and j2 entries that
+    differ, R4 the count of payload bytes that differ."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import posterior_batch as PB
+
+    cs = float(np.exp2(np.float32(REALIGN_SHIFT)))
+    args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
+    err = {}
+    want = PB.fb_forward_plain(*args, x["ss_f"], x["ss0"], local, x["t_L"])
+    got = PB.fb_forward(*args, x["ss_f"], x["ss0"], local, x["t_L"])
+    err["R1"] = max(finite_err(a, b) for a, b in zip(got, want))
+    for nm, a, b in zip(("fwd", "scales", "Pforward"), got, want):
+        if not bits_equal(a, b):
+            raise AssertionError(f"R1 {tag}: {nm} of kernel != plain "
+                                 f"(max |err| {err['R1']})")
+    fwd, scales, pfwd = want
+    pmm = PB.fb_backward_plain(*args, fwd, scales, pfwd, x["ss_f"], local,
+                               x["t_L"])
+    got = PB.fb_backward(*args, fwd, scales, pfwd, x["ss_f"], local,
+                         x["t_L"])
+    err["R2"] = finite_err(got, pmm)
+    if not bits_equal(got, pmm):
+        raise AssertionError(f"R2 {tag}: p_mm of kernel != plain "
+                             f"(max |err| {err['R2']})")
+    want = PB.mac_dp_plain(pmm, x["co"], REALIGN_MACT, local, x["t_L"])
+    got = PB.mac_dp(pmm, x["co"], REALIGN_MACT, local, x["t_L"])
+    err["R3"] = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
+    for nm, a, b in zip(("b_mac", "i2", "j2"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"R3 {tag}: {nm} of kernel != plain")
+    bmac, i2, j2 = want
+    Lq, Lt = x["co"].shape[1] - 1, x["co"].shape[2] - 1
+    score = torch.from_numpy(PB.forward_score(scales, pfwd, Lq, Lt,
+                                              local)).to(pmm.device)
+    payload = PB.mac_walk_packed8_plain(bmac, pmm, i2, j2, score, x["kmax"])
+    got = PB.mac_walk_packed8(bmac, pmm, i2, j2, score, x["kmax"])
+    err["R4"] = float(int((got != payload).sum()))
+    if not torch.equal(got, payload):
+        raise AssertionError(f"R4 {tag}: payload of kernel != plain "
+                             f"({int(err['R4'])} bytes differ)")
+    torch.cuda.synchronize()
+    return (fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload), err
+
+
+# f32 operations a cell that each realign pass needs, counted in the
+# expressions of csrc/posterior.cu (the segment scans' prefix products
+# and carries, which the parallel form adds, not counted): R1 the dot
+# 39, Cshift 1, MM 18, DG 5, MI 7, the GD and IM chains 12, the row sum
+# and max 2; R2 the dot 39, Cshift 1, the match term 2, the chains 13, MM
+# 16, DG 6, MI 7, the posterior 2; SS one more multiply each; R3 the
+# three terms 4, their max and code compares 4, the chain 2, the IM
+# compare 2, the argmax compare 1
+OPS_R = {"R1": 84, "R2": 86, "R3": 13}
+
+
+def realign_bound(key, x, ss, n_steps=None):
+    """The bound of R1-R4 on chunk ``x``: f32 operations (every cell of
+    every row, as the function computes them) and bytes (each input read
+    once, each output written once; R4 the cells its walks visit)."""
+    B, Li, Wj = x["co"].shape
+    cells = B * (Li - 1) * Wj
+    prof = (Li + 1) * 27 * 4 + B * (Wj + 1) * 27 * 4
+    mat = B * Li * Wj
+    if key == "R4":
+        nbytes = B * (12 + 5 * x["kmax"]) + 12 * B + 5 * int(n_steps)
+        return bound_ms(0, nbytes)
+    if key == "R3":
+        return bound_ms(cells * OPS_R["R3"], mat * (4 + 1 + 1) + 12 * B)
+    ss_bytes = (mat * 4 + 4 * B) if ss else 0
+    nbytes = prof + mat + ss_bytes + mat * 4 + B * (Li + 2) * 4
+    if key == "R2":
+        nbytes += mat * 4 + 4 * B
+    return bound_ms(cells * (OPS_R[key] + int(ss)), nbytes)
+
+
+# key -> (kernel in csrc/posterior.cu, record name, the JAX code it
+# replaces, its C entry)
+REALIGN_KERNELS = {
+    "R1": ("fb_forward_kernel", "R1 fb_forward (fb_mac_batch's Forward "
+           "rows)", "hhsuite_tpu/ops/posterior_batch.py:139",
+           "hh_post_forward"),
+    "R2": ("fb_backward_kernel", "R2 fb_backward (Backward rows, "
+           "posterior)", "hhsuite_tpu/ops/posterior_batch.py:226",
+           "hh_post_backward"),
+    "R3": ("mac_dp_kernel", "R3 mac_dp (MAC rows, codes, argmax)",
+           "hhsuite_tpu/ops/posterior_batch.py:281", "hh_post_mac"),
+    "R4": ("mac_walk_kernel", "R4 mac_walk_packed8 (MAC walk into the "
+           "payload)", "hhsuite_tpu/ops/posterior_batch.py:470",
+           "hh_post_walk")}
+REALIGN_KEYS = tuple(REALIGN_KERNELS)
+
+
+def phase1_realign(dev, usage):
+    """R1-R4 against their plain versions on the card at the realign
+    path's chunk (B = 256 hits, Lq = 300, Lt_pad = 384; corridors from
+    the interval form of seeded paths with 3 exclusion bands; a padding
+    lane), SS off and on, local and global; then at
+    :func:`realign_edge_shapes`.  Each timed with CUDA events beside its
+    bound and its plain version's time; its ``max_abs_err`` is the largest
+    difference from its plain version that :func:`realign_check` measured
+    over all of these cases.  Returns the records (without launch
+    counts)."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import posterior_batch as PB
+
+    cs = float(np.exp2(np.float32(REALIGN_SHIFT)))
+    recs, t_all = {}, time.perf_counter()
+    errs = dict.fromkeys(REALIGN_KEYS, 0.0)
+
+    def check(x, local, tag):
+        out, err = realign_check(x, local, tag)
+        for k, v in err.items():
+            errs[k] = max(errs[k], v)
+        return out
+
+    for ss in (False, True):
+        for local in (True, False):
+            tag = (f"SS {'on' if ss else 'off'}, "
+                   f"{'local' if local else 'global'}")
+            x = realign_inputs(LQ_RE, LT_RE, B_RE, 3, ss, SEED + 40 + ss,
+                               dev, extras="pad")
+            out = check(x, local, tag)
+            fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload = out
+            n_steps = int(PB.mac_walk_unpack8(payload.cpu().numpy(),
+                                              x["kmax"])[3].sum()) + B_RE
+            # (global mode: a lane whose corridor reaches neither row Lq
+            # nor its own last column has Pforward 0, a score of -inf)
+            if local and not torch.isfinite(score[:-1]).all():
+                raise AssertionError(f"realign {tag}: non-finite scores")
+            if not ss and local:
+                # the path's form: time each kernel and its plain version
+                args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
+                calls = {
+                    "R1": lambda p: (PB.fb_forward_plain if p else
+                                     PB.fb_forward)(*args, None, None, True,
+                                                    x["t_L"]),
+                    "R2": lambda p: (PB.fb_backward_plain if p else
+                                     PB.fb_backward)(*args, fwd, scales,
+                                                     pfwd, None, True,
+                                                     x["t_L"]),
+                    "R3": lambda p: (PB.mac_dp_plain if p else PB.mac_dp)(
+                        pmm, x["co"], REALIGN_MACT, True, x["t_L"]),
+                    "R4": lambda p: (PB.mac_walk_packed8_plain if p else
+                                     PB.mac_walk_packed8)(
+                        bmac, pmm, i2, j2, score, x["kmax"])}
+                for key, call in calls.items():
+                    t0 = time.perf_counter()
+                    call(True)
+                    torch.cuda.synchronize()
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    ms = cuda_ms(lambda: call(False), 3)
+                    bms, bby = realign_bound(key, x, ss, n_steps)
+                    kname, name, replaces, _entry = REALIGN_KERNELS[key]
+                    recs[key] = dict(
+                        name=name, route="cuda",
+                        source="hhsuite_tpu_torch/csrc/posterior.cu",
+                        replaces=replaces, max_abs_err=None, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                        library_ms=None,
+                        ptxas=usage.get(kname))
+                    log(f"phase1 {key} ({tag}): B={B_RE} Lq={LQ_RE} "
+                        f"Lt_pad={LT_RE} {ms:.3f} ms, plain {plain_ms:.1f} "
+                        f"ms, bound {bms:.4f} ms ({bby}); "
+                        + ("byte-identical" if key == "R4"
+                           else "bit-identical"))
+            else:
+                # the other forms: kernel time only
+                times = {}
+                args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
+                times["R1"] = cuda_ms(lambda: PB.fb_forward(
+                    *args, x["ss_f"], x["ss0"], local, x["t_L"]), 2)
+                times["R2"] = cuda_ms(lambda: PB.fb_backward(
+                    *args, fwd, scales, pfwd, x["ss_f"], local, x["t_L"]), 2)
+                times["R3"] = cuda_ms(lambda: PB.mac_dp(
+                    pmm, x["co"], REALIGN_MACT, local, x["t_L"]), 2)
+                for key, ms in times.items():
+                    recs.setdefault(key, {}).setdefault("other_ms", {})[
+                        tag] = ms
+                log(f"phase1 R1-R3 ({tag}): " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in times.items())
+                    + "; bit-identical, R4 byte-identical")
+            walks = PB.mac_walk_unpack8(payload.cpu().numpy(), x["kmax"])[3]
+            log(f"phase1 realign ({tag}): walks of {int(walks.min())}-"
+                f"{int(walks.max())} steps, {int((walks == 0).sum())} empty"
+                f" of {B_RE}; i2 max {int(i2.max())}, finite scores "
+                f"{int(torch.isfinite(score).sum())} of {B_RE}, range "
+                f"{float(score[torch.isfinite(score)].min()):.2f}.."
+                f"{float(score[torch.isfinite(score)].max()):.2f}")
+            del x, out, fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, (tag, Lq, Lt_pad, B, P, ss, local, extras) in enumerate(
+            realign_edge_shapes()):
+        x = realign_inputs(Lq, Lt_pad, B, P, ss, SEED + 60 + k, dev, extras)
+        check(x, local, tag)
+    log(f"phase1 R1-R4 edges: {len(realign_edge_shapes())} cases "
+        f"bit-identical (R4 byte-identical): "
+        + "; ".join(e[0] for e in realign_edge_shapes())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    for k in REALIGN_KEYS:
+        recs[k]["max_abs_err"] = errs[k]
+    log("phase1 R1-R4 measured kernel - plain: " + ", ".join(
+        f"{k} {errs[k]}" for k in REALIGN_KEYS) + " (R1/R2 max |err| over "
+        "finite cells, R3 entries and R4 bytes that differ)")
+    log(f"phase1 R1-R4: {time.perf_counter() - t_all:.1f} s")
+    return recs
+
 
 def k5_edge_shapes():
     """K5's wavefront edges at each forced group width G (also the card
@@ -1048,6 +1389,12 @@ CPU_RUN = """
 import sys, time
 sys.path.insert(0, {repo!r})
 from hhsuite_tpu_torch.cli import main
+from hhsuite_tpu_torch.search import engine
+# the card's realign rule without its card test: the CPU run takes the
+# batched realign path (the plain versions of R1-R4) as the card does
+engine._use_device_realign = (
+    lambda par, selected, device: not par.matrices_output_file
+    and len(selected) >= 4)
 t0 = time.perf_counter()
 rc = main(sys.argv[1:])
 print(f"CPU_SECONDS {{time.perf_counter() - t0:.2f}}", flush=True)
@@ -1058,7 +1405,8 @@ sys.exit(rc)
 def start_cpu_run(args):
     """One CLI run on the CPU (the plain versions) in a child process,
     with a third of the host's cores for its torch threads, so that
-    phase 3's three CPU runs go side by side."""
+    phase 3's three CPU runs go side by side; its realign takes the
+    card's path (:data:`CPU_RUN`)."""
     from hhsuite_tpu_torch.device import DEVICE_ENV
 
     threads = str(max(1, (os.cpu_count() or 3) // 3))
@@ -1162,10 +1510,12 @@ def phase4_full(base, query_text, counters):
             f"{hitlist.N_searched}, hits {len(hits)} (full "
             f"{len(hits) - light}, light {light}), launches {n}, "
             f"{_funnel_counts(timers)}, realign: "
-            f"{'device' if engine._use_device_realign(par, hits) else 'host'}")
+            + ("device" if engine._use_device_realign(
+                par, hits, torch.device("cuda")) else "host"))
         log("phase4 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
-        if any(n[k] == 0 for k in ("K1", "K2", "K3")):
+        log(f"phase4 {tag} {_realign_split(timers)}")
+        if any(n[k] == 0 for k in ("K1", "K2", "K3") + REALIGN_KEYS):
             raise AssertionError(f"phase4: a kernel of the path was not "
                                  f"launched: {n}")
         if hitlist.N_searched != db.size() or not hits:
@@ -1178,10 +1528,50 @@ def phase4_full(base, query_text, counters):
                 (h.entry, h.irep, h.score) for h in hits] != last:
             raise AssertionError("phase4: warm run differs from cold run")
         last = [(h.entry, h.irep, h.score) for h in hits]
+    # the same query with the host decoder: .hhr lines that differ
+    # (a printed count, not a gate: f32 on the card against doubles)
+    card_hhr = _hhr_lines(par, q, hitlist)
+    orig = engine._use_device_realign
+    engine._use_device_realign = lambda *_a: False
+    try:
+        t0 = time.perf_counter()
+        par_h = Parameters.hhsearch_defaults()
+        q_h, hl_h = engine.run_hhsearch(par_h, query_text, db, "bench_query")
+        host_s = time.perf_counter() - t0
+    finally:
+        engine._use_device_realign = orig
+    host_hhr = _hhr_lines(par_h, q_h, hl_h)
+    ndiff = (sum(a != b for a, b in zip(card_hhr, host_hhr))
+             + abs(len(card_hhr) - len(host_hhr)))
+    log(f"phase4 realign on the card against the host decoder (same query, "
+        f"host run {host_s:.3f} s): {ndiff} of {len(host_hhr)} .hhr lines "
+        f"differ ({len(card_hhr)} lines on the card)")
     profile_query("phase4", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query"),
-        counters)
+        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS)
     return n
+
+
+def _hhr_lines(par, q, hitlist):
+    """The .hhr text of a search (hit list and alignments, no Date or
+    Command lines), as lines."""
+    from hhsuite_tpu_torch.io.alignments import print_alignments
+    from hhsuite_tpu_torch.io.results import print_hit_list
+    from hhsuite_tpu_torch.matrices import get_substitution_matrix
+
+    text = (print_hit_list(q, hitlist, par.maxdbstrlen, par.z, par.Z, par.p,
+                           par.E, [], datestr="-")
+            + print_alignments(q, hitlist, par,
+                               get_substitution_matrix(par.matrix).S))
+    return text.splitlines()
+
+
+def _realign_split(timers: dict) -> str:
+    """host_realign and its split timers, in seconds."""
+    keys = ("host_realign", "host_realign_assemble", "posterior_fetch_wait",
+            "host_realign_write")
+    return "realign (s): " + ", ".join(
+        f"{k} {timers.get(k, 0.0):.4f}" for k in keys)
 
 
 def _funnel_counts(timers: dict) -> str:
@@ -1258,10 +1648,13 @@ def phase5_hhblits(base, query_text, counters, dev):
                 f"{ {k: v - prev_n[k] for k, v in r['launches'].items()} }")
             log(f"phase5 {tag} round {r['round']} stages (s): "
                 + json.dumps(_delta(r["stages"], prev_t)))
+            log(f"phase5 {tag} round {r['round']} " + _realign_split(
+                _delta(r["stages"], prev_t)))
             prev_n, prev_t = r["launches"], r["stages"]
         log(f"phase5 {tag} stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
-        if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")):
+        if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")
+               + REALIGN_KEYS):
             raise AssertionError(f"phase5: a kernel of the path was not "
                                  f"launched: {n}")
         if not hits or not all(math.isfinite(h.score) for h in hits):
@@ -1313,7 +1706,7 @@ def phase5_hhblits(base, query_text, counters, dev):
     torch.cuda.empty_cache()
     by_name = profile_query("phase5", lambda: run_hhblits(
         Parameters.hhblits_defaults(), query_text, db, "bench_query"),
-        counters, timed=("sweep (K1/K6)", "K4"))
+        counters, timed=("sweep (K1/K6)", "K4") + REALIGN_KEYS)
     k5 = [v for name, v in by_name.items() if "pf_wave_kernel<true" in name]
     log(f"phase5 K5 device time: {sum(us for us, _n in k5) / 1e3:.3f} ms "
         f"over {sum(n for _us, n in k5)} launches (profiled warm query; "
@@ -1358,10 +1751,12 @@ def phase6_ss(base, query_text, counters):
             f"{_funnel_counts(timers)}")
         log("phase6 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log(f"phase6 {tag} {_realign_split(timers)}")
         if q.nss_pred < 0:
             raise AssertionError("phase6: the query carries no SS")
-        if n["K6"] == 0 or n["K3"] == 0:
-            raise AssertionError(f"phase6: K6 and K3 must launch: {n}")
+        if any(n[k] == 0 for k in ("K6", "K3") + REALIGN_KEYS):
+            raise AssertionError(f"phase6: K6, K3 and R1-R4 must launch: "
+                                 f"{n}")
         if hitlist.N_searched != db.size() or not hits:
             raise AssertionError("phase6: wrong number of templates/hits")
         if not all(math.isfinite(h.score) for h in hits):
@@ -1375,7 +1770,7 @@ def phase6_ss(base, query_text, counters):
         last = now
     by_name = profile_query("phase6", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query_ss"),
-        counters)
+        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS)
     k3 = [v for name, v in by_name.items() if "vit_bt_kernel" in name]
     log(f"phase6 K3 device time: {sum(us for us, _n in k3) / 1e3:.2f} ms "
         f"over {sum(n for _us, n in k3)} launches (profiled warm query)")
@@ -1388,6 +1783,8 @@ TIMED = {"sweep (K1/K6)": ("viterbi_lanes", "hh_vit_score", ("K1", "K6"),
                            "vit_score_kernel"),
          "K4": ("prefilter", "hh_pf_ungapped", ("K4",),
                 "pf_wave_kernel<false")}
+TIMED.update({key: ("posterior_batch", entry, (key,), kname)
+              for key, (kname, _n, _r, entry) in REALIGN_KERNELS.items()})
 
 
 @contextlib.contextmanager
@@ -1504,9 +1901,13 @@ def kernel_counters():
         viterbi_score_lanes_fused)
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
+    from hhsuite_tpu_torch.ops import posterior_batch as PB
+
     return {"K1": viterbi_score_lanes_fused, "K2": viterbi_backtrace_lanes,
             "K3": viterbi_batch_rows, "K4": ungapped_scores,
-            "K5": gapped_scores, "K6": viterbi_score_lanes}
+            "K5": gapped_scores, "K6": viterbi_score_lanes,
+            "R1": PB.fb_forward, "R2": PB.fb_backward, "R3": PB.mac_dp,
+            "R4": PB.mac_walk_packed8}
 
 
 def reset(counters):
@@ -1525,16 +1926,18 @@ def phase0_builds() -> dict:
     print ptxas's registers and spills of every wavefront kernel
     instantiation: the eight of vit_bt_kernel (K2/K3) and the twelve of
     vit_score_kernel (K1/K6: fast, exact, dense SS, SS table at G = 8,
-    16, 32).  Returns :func:`wave_instantiations` of the viterbi build."""
+    16, 32), and of the four realign kernels (R1-R4).  Returns
+    :func:`wave_instantiations` of the viterbi build and the realign
+    kernels' usage under their names."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hhsuite_tpu_torch import native
     from hhsuite_tpu_torch.device import cuda_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
+    with ThreadPoolExecutor(4) as ex:
         f_cu = {name: ex.submit(cuda_library, name)
-                for name in ("viterbi", "prefilter")}
+                for name in ("viterbi", "prefilter", "posterior")}
         f_nat = ex.submit(native.require)
         infos = {name: f.result()[1] for name, f in f_cu.items()}
         f_nat.result()
@@ -1558,6 +1961,16 @@ def phase0_builds() -> dict:
         raise AssertionError(f"phase0: ptxas reported {n_bt} vit_bt_kernel "
                              f"and {n_score} vit_score_kernel "
                              "instantiations, not 8 and 12")
+    for name, u in ptxas_usage(infos["posterior"].log).items():
+        for kname, *_rest in REALIGN_KERNELS.values():
+            if kname in name:
+                usage[kname] = u
+    for key, (kname, *_rest) in REALIGN_KERNELS.items():
+        if kname not in usage:
+            raise AssertionError(f"phase0: ptxas reported no {kname}")
+        regs, st, ld = usage[kname]
+        log(f"phase0 {key} {kname}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
     return usage
 
 
@@ -1682,6 +2095,7 @@ def main() -> int:
         t_pf = time.perf_counter()
         recs.update(phase1_prefilter(dev))
         log(f"phase1 K4/K5: {time.perf_counter() - t_pf:.1f} s")
+        recs.update(phase1_realign(dev, usage))
         t_phase = phase_ok(1, t_phase)
         phase2_golden(work)
         phase2_golden_ss(work)
@@ -1701,12 +2115,13 @@ def main() -> int:
                     cap, "-B", cap, "-realign_max", cap]
 
         phase3_card_vs_cpu(work, [
-            ("512 templates", hhsearch(base512, "100"), ("K1",), ("-o",)),
+            ("512 templates", hhsearch(base512, "100"),
+             ("K1",) + REALIGN_KEYS, ("-o",)),
             (f"{N_FAMILY_SMALL} SS templates", hhsearch(base_ss_small, "30"),
-             ("K6",), ("-o",)),
+             ("K6",) + REALIGN_KEYS, ("-o",)),
             (f"hhblits -n 2, {N_FAMILY_SMALL} templates + {N_DECOYS_SMALL} "
              "decoys", ["hhblits", "-i", base_small + ".query.a3m", "-d",
-                        base_small_d, "-n", "2"], ("K4", "K5"),
+                        base_small_d, "-n", "2"], ("K4", "K5") + REALIGN_KEYS,
              ("-o", "-oa3m"))], counters)
         t_phase = phase_ok(3, t_phase)
         with open(base8k + ".query.a3m") as f:
@@ -1727,14 +2142,15 @@ def main() -> int:
             db_proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches: K1-K3 on the hhsearch path (phase 4), K4/K5 on the
-    # hhblits path (phase 5), K6 on the SS hhsearch path (phase 6); each
-    # also with its hhblits and SS counts
+    # launches: K1-K3 and R1-R4 on the hhsearch path (phase 4), K4/K5 on
+    # the hhblits path (phase 5), K6 on the SS hhsearch path (phase 6);
+    # each also with its hhblits and SS counts
     main_path = {"K1": launches, "K2": launches, "K3": launches,
                  "K4": launches_blits, "K5": launches_blits,
                  "K6": launches_ss}
+    main_path.update({key: launches for key in REALIGN_KEYS})
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6") + REALIGN_KEYS:
         r = dict(recs[key])
         r["launches"] = main_path[key][key]
         r["launches_hhblits"] = launches_blits[key]

@@ -4,6 +4,8 @@ Usage:  python -m hhsuite_tpu_torch hhsearch -i q.a3m -d db [-o out.hhr]
         [-blasttab f] [-scores f] [-atab f] [options]
         python -m hhsuite_tpu_torch hhblits -i q.a3m -d db [-o out.hhr]
         [-blasttab f] [-oa3m f] [-n rounds] [options]
+        python -m hhsuite_tpu_torch hhalign -i q.a3m -t t.a3m [-o out.hhr]
+        [-oa3m f] [options]
 
 Runs on the CUDA card unless ``HHSUITE_TPU_TORCH_DEVICE=cpu`` asks for
 the CPU (plain PyTorch versions of every kernel).  Output-file wiring
@@ -136,7 +138,31 @@ def cmd_hhsearch(argv: List[str]) -> int:
     return 0
 
 
+def cmd_hhalign(argv: List[str]) -> int:
+    from .matrices import get_substitution_matrix
+    from .search.engine import run_hhalign
+
+    par = Parameters.hhalign_defaults()
+    parse_args(argv, par)
+    if not par.infile or not par.tfiles:
+        print("hhalign -i <query> -t <template> [-o out.hhr] ...",
+              file=sys.stderr)
+        return 4
+    text = _read_infile(par)
+    templates = []
+    for tf in par.tfiles:
+        with open(tf) as f:
+            templates.append((tf, f.read()))
+    q, hitlist, qali = run_hhalign(par, text, templates, par.infile)
+    mats = get_substitution_matrix(par.matrix)
+    if not par.outfile and not par.m8file:
+        par.outfile = "stdout"
+    _search_outputs(par, q, None, hitlist, qali, mats)
+    return 0
+
+
 COMMANDS = {
+    "hhalign": cmd_hhalign,
     "hhblits": cmd_hhblits,
     "hhsearch": cmd_hhsearch,
 }

@@ -242,7 +242,7 @@ def run_hhblits(par: Parameters, query_text: str, db: HHDatabase,
         if par.realign:
             with annotate("host_realign"):
                 perform_realign(par, q_re, hitlist, get_template, mats, ss,
-                                MINCOLS_REALIGN)
+                                MINCOLS_REALIGN, device=dev)
         q.realign_q = q_re
 
         # q for the hhr writer is the round-start HMM (writeHHRFile uses

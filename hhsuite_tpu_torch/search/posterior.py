@@ -9,9 +9,10 @@ restricted to a cell-off corridor of ±40 cells around the Viterbi path
 and the MAC backtrace that replaces the hit's alignment.
 
 This is the reference-exact host path; the banded corridor keeps it
-O(width · L).  It is the only realign path of this package so far: the
-batched device F/B/MAC decoder of the JAX package
-(ops/posterior_batch.py) is not ported yet.
+O(width · L).  ``PosteriorDecoder.realign_batch_device`` is the bulk f32
+path on the card: a batch of hits decoded by the kernels of
+ops/posterior_batch.py (R1-R4), with the corridor built from its
+interval form (:class:`RealignMaskSpec`).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 
 from .. import fastmath as fm
 from ..constants import (D2D, D2M, FWD_BKW_PATHWIDTH, I2I, I2M, M2D, M2I,
-                         M2M)
+                         M2M, NTRANS)
 from ..core.hit import Hit, log_pvalue, pvalue
 from ..core.hmm import HMM
 
@@ -34,6 +35,11 @@ FLT_MAX = float(np.finfo(np.float32).max)
 STOP, MM, GD, IM, DG, MI = 0, 2, 3, 4, 5, 6
 
 LAMDA = 0.388
+
+# hits a batched realign chunk decodes (the JAX package's staging, which
+# defines the results: length-sorted chunks of this many hits, a level
+# of several chunks padded to it with lanes of cells all off)
+REALIGN_CHUNK = 256
 
 
 @dataclass
@@ -79,6 +85,44 @@ def apply_exclstr(co: np.ndarray, exclstr: Optional[str],
         for j0, j1 in _parse_excl_pairs(template_exclstr):
             co[1: Lq + 1, j0: min(j1, Lt) + 1] = True
     return co
+
+
+class RealignMaskSpec:
+    """Compact interval form of build_realign_cell_off's mask, for
+    construction on the card (``ops.posterior_batch.
+    realign_mask_device``): a few hundred KB of intervals a chunk
+    instead of the (B, Lq+1, Lt+1) bool corridor.
+
+    co(i>=1, j>=1) = (base & ~bandF) | bandE with
+      base  = NOT((i < i1 & j < j1) | (i > i2 & j > j2)),
+      bandF = the ±40 Viterbi-path band (column/row intervals),
+      bandE = union of ±2 bands around previously excluded MAC paths;
+    col 0 forced open(False), row 0 = the min-overlap corner remnant
+    (j >= corner_j0), padding columns j > Lt closed."""
+
+    __slots__ = ("i1", "j1", "i2", "j2", "corner_j0", "Lt",
+                 "F", "E")
+
+    def __init__(self, q: HMM, t: HMM, hit: Hit, par_min_overlap: int,
+                 alignments_to_exclude: List[MACBacktraceResult]):
+        from ..ops.viterbi import band_intervals
+
+        Lq, Lt = q.L, t.L
+        if par_min_overlap == 0:
+            min_overlap = min(60, int(0.333 * min(Lq, Lt)) + 1)
+        else:
+            min_overlap = min(par_min_overlap, int(0.8 * min(Lq, Lt)))
+        self.i1, self.j1 = int(hit.i1), int(hit.j1)
+        self.i2, self.j2 = int(hit.i2), int(hit.j2)
+        self.corner_j0 = max(Lt + 1 - min_overlap, 0)
+        self.Lt = Lt
+        self.F = band_intervals(hit.i[1: hit.nsteps + 1],
+                                hit.j[1: hit.nsteps + 1], 40, Lq, Lt,
+                                Lq + 1, Lt + 1)
+        self.E = [band_intervals(np.asarray(al.alt_i),
+                                 np.asarray(al.alt_j), 2, Lq, Lt,
+                                 Lq + 1, Lt + 1)
+                  for al in alignments_to_exclude]
 
 
 def build_realign_cell_off(q: HMM, t: HMM, hit: Hit, par_min_overlap: int,
@@ -319,6 +363,178 @@ class PosteriorDecoder:
                     post.append((i, int(j) + 1, float(v)))
         hit.posterior_matrix = post
         return p_mm
+
+    def realign_batch_device(self, q: HMM, items, shift: float,
+                             mact: float, corr: float, device):
+        """Realign a batch of hits on ``device`` with the batched
+        F/B/MAC decoder (ops/posterior_batch.py: the kernels R1-R4 on
+        the card, their plain versions on the CPU): per chunk one mask
+        build, R1, R2, R3, R4 and one copy of the packed payload.
+
+        ``items`` is a list of (hit, t, co) with templates already in
+        linear-transition form and ``co`` a :class:`RealignMaskSpec` or
+        a bool corridor.  Float32 bulk path: posteriors agree with the
+        host decoder to ~5e-3 and MAC paths are identical away from
+        numerical plateaus; the -omat sparse products are NOT produced
+        (callers use the host path for -omat).  Saved-score semantics
+        match ``realign``: the hits keep their search scores, so the
+        Forward score is not computed (the payload's score field is 0).
+        Stage timers: ``host_realign_assemble`` (staging, upload and
+        launches),
+        ``posterior_fetch_wait`` (the payload's copy and unpack),
+        ``host_realign_write`` (the hits' fields).
+        """
+        import time
+
+        import torch
+
+        from ..ops.posterior_batch import (fb_mac_rows, mac_walk_packed8,
+                                           mac_walk_unpack8,
+                                           realign_mask_device)
+        from ..profiling import stage_add
+
+        if not items:
+            return
+        Lq = q.L
+        qp = torch.from_numpy(q.p.astype(np.float32)).to(device)
+        qtr = torch.from_numpy(q.tr.astype(np.float32)).to(device)
+
+        def dev(x):
+            return torch.from_numpy(x).to(device)
+
+        # sort by template length so per-chunk padding stays tight (the
+        # reference length-sorts for thread utilization,
+        # hhviterbirunner.cpp:117); results go onto the hit objects, so
+        # the order does not matter
+        items = sorted(items, key=lambda it: -it[1].L)
+        for s in range(0, len(items), REALIGN_CHUNK):
+            t0 = time.perf_counter()
+            part = items[s: s + REALIGN_CHUNK]
+            # a level of several chunks pads each to the full chunk with
+            # lanes of cells all off
+            B = REALIGN_CHUNK if len(items) > REALIGN_CHUNK else len(part)
+            Lt_max = max(t.L for _h, t, _c in part)
+            Lt_pad = -(-max(Lt_max, 128) // 128) * 128
+            Wj = Lt_pad + 1
+            tp = np.zeros((B, Lt_pad + 2, 20), np.float32)
+            ttr = np.zeros((B, Lt_pad + 2, NTRANS), np.float32)
+            use_spec = isinstance(part[0][2], RealignMaskSpec)
+            if use_spec:
+                P = max((len(sp.E) for _h, _t, sp in part), default=0)
+                rect = np.zeros((B, 4), np.int32)
+                corner = np.zeros(B, np.int32)
+                tLv = np.zeros(B, np.int32)
+                loF_c = np.ones((B, Wj), np.int16)
+                hiF_c = np.zeros((B, Wj), np.int16)
+                loF_r = np.ones((B, Lq + 1), np.int16)
+                hiF_r = np.zeros((B, Lq + 1), np.int16)
+                loE_c = np.ones((B, P, Wj), np.int16)
+                hiE_c = np.zeros((B, P, Wj), np.int16)
+                loE_r = np.ones((B, P, Lq + 1), np.int16)
+                hiE_r = np.zeros((B, P, Lq + 1), np.int16)
+                for b, (_h, t, sp) in enumerate(part):
+                    rect[b] = (sp.i1, sp.j1, sp.i2, sp.j2)
+                    corner[b] = sp.corner_j0
+                    tLv[b] = sp.Lt
+                    lc, hc, lr, hr = sp.F
+                    loF_c[b, : sp.Lt + 1] = lc
+                    hiF_c[b, : sp.Lt + 1] = hc
+                    loF_r[b] = lr
+                    hiF_r[b] = hr
+                    for p, (lc, hc, lr, hr) in enumerate(sp.E):
+                        loE_c[b, p, : sp.Lt + 1] = lc
+                        hiE_c[b, p, : sp.Lt + 1] = hc
+                        loE_r[b, p] = lr
+                        hiE_r[b, p] = hr
+            else:
+                co = np.ones((B, Lq + 1, Wj), bool)
+            need_ss = any(h.ssm2 for h, _t, _c in part)
+            if need_ss:
+                # dense SS factors, filled on the host for each hit
+                ss_f = np.ones((B, Lq + 1, Wj), np.float32)
+                ss0 = np.ones(B, np.float32)
+            for b, (hit, t, co_h) in enumerate(part):
+                tp[b, : t.L + 2] = t.p.astype(np.float32)
+                ttr[b, : t.L + 2] = t.tr.astype(np.float32)
+                if not use_spec:
+                    co[b, :, : t.L + 1] = co_h
+                if need_ss and hit.ssm2:
+                    m = self._ss_matrix(q, t, hit.ssm2)
+                    ss_f[b, :, : t.L + 1] = fm.fpow2(
+                        m[: Lq + 1, : t.L + 1].astype(np.float32))
+                    ss0[b] = fm.fpow2(np.float32(_score_ss_single(
+                        q, t, 1, t.L + 1, self.ssw, hit.ssm2,
+                        self.S73, self.S37, self.S33)))
+            t_Ls = np.zeros(B, np.int32)
+            t_Ls[: len(part)] = [t.L for _h, t, _c in part]
+            kmax = Lq + Lt_pad + 2
+            if use_spec:
+                co_d = realign_mask_device(*(dev(x) for x in (
+                    rect, corner, tLv, loF_c, hiF_c, loF_r, hiF_r, loE_c,
+                    hiE_c, loE_r, hiE_r)))
+            else:
+                co_d = dev(co)
+            b_mac, i2_d, j2_d, p_mm_d, _sc, _pf = fb_mac_rows(
+                qp, qtr, dev(tp), dev(ttr), co_d, shift, mact,
+                dev(ss_f) if need_ss else None,
+                dev(ss0) if need_ss else None, local=self.local,
+                t_L=dev(t_Ls))
+            packed_d = mac_walk_packed8(b_mac, p_mm_d, i2_d, j2_d,
+                                        torch.zeros(B, device=device), kmax)
+            del co_d, b_mac, p_mm_d, _sc, _pf
+            stage_add("host_realign_assemble", time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            (_score, i2, j2, n, mm_count, empty, st, ii,
+             jj, post) = mac_walk_unpack8(packed_d.cpu().numpy(), kmax)
+            stage_add("posterior_fetch_wait", time.perf_counter() - t0)
+
+            t0 = time.perf_counter()
+            for b, (hit, t, _co_h) in enumerate(part):
+                saved = (hit.score, hit.score_ss, hit.score_aass,
+                         hit.Pval, hit.Pvalt, hit.logPval, hit.logPvalt,
+                         hit.Eval, hit.logEval, hit.Probab)
+                hit.i2 = int(i2[b])
+                hit.j2 = int(j2[b])
+                if empty[b]:
+                    hit.matched_cols = 1
+                    hit.i = np.array([hit.i2], np.int32)
+                    hit.j = np.array([hit.j2], np.int32)
+                    hit.states = np.zeros(1, np.int8)
+                    hit.nsteps = 0
+                    hit.i1 = hit.i2
+                    hit.j1 = hit.j2
+                    hit.alt_i = [hit.i2]
+                    hit.alt_j = [hit.j2]
+                    P_post = np.zeros(1, np.float32)
+                else:
+                    nb = int(n[b])
+                    hit.nsteps = nb
+                    hit.i = np.zeros(nb + 1, np.int32)
+                    hit.j = np.zeros(nb + 1, np.int32)
+                    hit.states = np.zeros(nb + 1, np.int8)
+                    hit.i[1:] = ii[b, :nb]
+                    hit.j[1:] = jj[b, :nb]
+                    hit.states[1:] = st[b, :nb]
+                    hit.states[nb] = MM       # reference overwrite
+                    hit.matched_cols = 1 + int(mm_count[b])
+                    hit.i1 = int(hit.i[nb])
+                    hit.j1 = int(hit.j[nb])
+                    hit.alt_i = ii[b, :nb].astype(np.int64)
+                    hit.alt_j = jj[b, :nb].astype(np.int64)
+                    # posteriors only at MM steps (the host gathers
+                    # AFTER the terminal-state MM overwrite, so the
+                    # last step's posterior is included either way)
+                    P_post = np.zeros(nb + 1, np.float32)
+                    mm_mask = hit.states[1:] == MM
+                    P_post[1:][mm_mask] = post[b, :nb][mm_mask]
+                self._rescore_mac_path(q, t, hit, None, corr,
+                                       P_post=P_post)
+                (hit.score, hit.score_ss, hit.score_aass, hit.Pval,
+                 hit.Pvalt, hit.logPval, hit.logPvalt, hit.Eval,
+                 hit.logEval, hit.Probab) = saved
+                hit.P_MM = None
+            stage_add("host_realign_write", time.perf_counter() - t0)
 
     def _forward(self, q, t, hit, p_mm, co, shift, scale):
         """hhforwardalgorithm.cpp:10-220 (double precision, row scaled)."""

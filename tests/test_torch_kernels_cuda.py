@@ -6,7 +6,10 @@ edges of their wavefronts (one row, a pass of G*R rows less one,
 exactly, plus one, several passes, at each group width G; one column;
 fewer columns than lanes; one template; a block not filled; a lane of
 padding only), and K4 and K5 at their wavefront's edges at each group
-width, with the sequences of one warp far apart in length.  Needs a CUDA card;
+width, with the sequences of one warp far apart in length; the realign
+kernels R1-R3 bit for bit and R4 byte for byte at their edges
+(``chip_smoke.realign_edge_shapes``) and at the path's chunk of 256 hits,
+SS on and off, local and global.  Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
@@ -28,8 +31,11 @@ from hhsuite_tpu_torch.ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
 from hhsuite_tpu_torch.search.prefilter import to_device_cs219
-from chip_smoke import (bt_edge_shapes, k4_edge_shapes, k5_edge_inputs,
-                        k5_edge_shapes, score_edge_shapes)
+from chip_smoke import (B_RE, LQ_RE, LT_RE, REALIGN_MACT, REALIGN_SHIFT,
+                        bt_edge_shapes, k4_edge_shapes, k5_edge_inputs,
+                        k5_edge_shapes, realign_check, realign_edge_shapes,
+                        realign_inputs, score_edge_shapes)
+from hhsuite_tpu_torch.ops import posterior_batch as PB
 from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
@@ -318,3 +324,37 @@ def test_prefilter_kernel_path_shape(cuda, stage):
     want = PK.packed_plain(plain, qc, *rows, *args, chunk=1 << 16)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(got.max()) > 0
+
+
+REALIGN_CASES = realign_edge_shapes() + [
+    ("path chunk", LQ_RE, LT_RE, B_RE, 3, ss, local, "pad")
+    for ss in (False, True) for local in (True, False)]
+
+
+@pytest.mark.parametrize("case", REALIGN_CASES,
+                         ids=lambda c: f"{c[0]}-ss{int(c[5])}-loc{int(c[6])}")
+def test_realign_kernels_bit_identical(cuda, case):
+    tag, Lq, Lt_pad, B, P, ss, local, extras = case
+    x = realign_inputs(Lq, Lt_pad, B, P, ss, seed=Lq + B, device=cuda,
+                       extras=extras)
+    counters = (PB.fb_forward, PB.fb_backward, PB.mac_dp,
+                PB.mac_walk_packed8)
+    n0 = [f.launches for f in counters]
+    realign_check(x, local, tag)      # raises where a kernel differs
+    assert [f.launches for f in counters] == [k + 1 for k in n0]
+
+
+def test_realign_kernels_global_scratch(cuda, monkeypatch):
+    """Rows too wide for shared memory keep their arrays in the global
+    scratch: forced here at a narrow row."""
+    monkeypatch.setattr(PB, "SMEM_MAX", 0)
+    x = realign_inputs(40, 256, 6, 2, True, seed=3, device=cuda,
+                       extras="pad")
+    args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], REALIGN_SHIFT,
+            REALIGN_MACT, x["ss_f"], x["ss0"], True, x["t_L"])
+    got = PB.fb_mac_batch(*args)
+    monkeypatch.setattr(PB, "fb_forward", PB.fb_forward_plain)
+    monkeypatch.setattr(PB, "fb_backward", PB.fb_backward_plain)
+    monkeypatch.setattr(PB, "mac_dp", PB.mac_dp_plain)
+    want = PB.fb_mac_batch(*args)
+    assert all(_same(a, b) for a, b in zip(got, want))
