@@ -18,8 +18,10 @@ and no result line:
    eight of ``vit_bt_kernel``, K2/K3, and the twelve of
    ``vit_score_kernel``, K1/K6: fast, exact, SS table and dense SS at G
    = 8, 16, 32) and of the prefilter kernels (the four instantiations of
-   ``pf_wave_kernel``: K4 and K5, table in shared or global memory), and
-   their integer add / min / max instructions (``cuobjdump -sass``);
+   ``pf_wave_kernel``: K4 and K5, table in shared or global memory), of
+   the realign kernels (R1-R4) and of the walk (W1, ``bt_walk_kernel``),
+   and the prefilter's integer add / min / max instructions
+   (``cuobjdump -sass``);
 1. each kernel against its plain PyTorch version on the card at the
    search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
    with altali masks, global, and with the SS table, K6 with the SS
@@ -27,7 +29,10 @@ and no result line:
    lane R); K1 fast timed at each group width G = 8, 16, 32 at a full
    sweep chunk (8192 templates) and a partial one (2048); K6's dense
    form and its table form bit-identical, K6 without SS equal to K1
-   exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the
+   exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the walk W1
+   byte-identical to its plain version on K2's bt (the kernel's storage
+   view) and on the plain version's contiguous bt, both walks timed on
+   K2's bt in one call, and at every K2/K3 edge; the
    prefilter kernels (K4, K5) int-identical at the path's shape and at
    edge shapes, each timed at each group width G = 8, 16, 32 and held at
    its wavefront's edge shapes at each; times from CUDA events;
@@ -62,11 +67,16 @@ and no result line:
 A profiled warm query (phases 4-6) traces the card's activity alone
 (``torch.profiler``, CUDA activities): device time by kernel and the
 device's busy share; on the same query CUDA events around each launch of
-the sweep kernel (K1/K6), and in phase 5 of K4, give its device time over
-exactly the launches that the counters count (the phase fails when the
-two count different launches), beside the profiler's reading of the same
-kernel.  Each phase prints its wall seconds.  The last lines are the
-card (``nvidia-smi``), one JSON object with the per-kernel numbers, and
+the sweep kernel (K1/K6), R1-R4, the walk W1, and in phase 5 of K4, give
+its device time over exactly the launches that the counters count (the
+phase fails when the two count different launches), beside the
+profiler's reading of the same kernel.  In phases 3-6 W1 must launch,
+and in phases 4-6 once for each K2/K3 launch (the phase fails
+otherwise); phases 4-6 print the backtrace pass's launch time
+(``viterbi_backtrace_pass``) beside its payload copy
+(``vit_payload_fetch``).  Each phase prints its wall seconds.  The last
+lines are the card (``nvidia-smi``), one JSON object with the per-kernel
+numbers, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -391,7 +401,8 @@ def phase1_kernels(dev, usage):
                if k.startswith(("score<1,0,", "score<0,0,"))})
     del qp, qtr, tp, ttr, tL, plain_out
 
-    def bt_check(tag, kern, plain, B, extra_bytes, ops_cell, tL, reps):
+    def bt_check(tag, kern, plain, B, extra_bytes, ops_cell, tL, reps,
+                 after=None):
         counters = (viterbi_backtrace_lanes, viterbi_batch_rows)
         n0 = sum(c.launches for c in counters)
         out_k = kern()
@@ -407,6 +418,8 @@ def phase1_kernels(dev, usage):
         if not torch.isfinite(out_k[0]).all():
             raise AssertionError(f"{tag}: non-finite scores")
         err = max_abs(out_k[0], out_p[0])
+        if after is not None:
+            after(out_k, out_p)
         del out_k, out_p
         ms = cuda_ms(kern, reps)
         launches = sum(c.launches for c in counters) - n0
@@ -422,7 +435,7 @@ def phase1_kernels(dev, usage):
             f"smem={smem} B; bound {bms:.3f} ms ({bby})")
         return ms, plain_ms, err, bms, bby, geo
 
-    # ---- K2 ----
+    # ---- K2, and W1 on its bt ----
     qp, qtr, tp, ttr, tL = synth_inputs(LQ, LT, B_K2, SEED + 1, dev)
     ms, plain_ms, err, bms, bby, geo = bt_check(
         "K2",
@@ -430,7 +443,8 @@ def phase1_kernels(dev, usage):
                                         Lq_true=LQ),
         lambda: viterbi_batch(qp, qtr, tp, ttr, None, tL, shift,
                               Lq_true=LQ),
-        B_K2, in_bytes(qp, tp, B_K2), OPS_BT, tL, 2)
+        B_K2, in_bytes(qp, tp, B_K2), OPS_BT, tL, 2,
+        after=lambda k, p: recs.update(W1=phase1_walk(k, p, usage)))
     recs["K2"] = dict(
         name="K2 viterbi_backtrace_lanes", route="cuda",
         source="hhsuite_tpu_torch/csrc/viterbi.cu",
@@ -476,9 +490,59 @@ def phase1_kernels(dev, usage):
         bound_by=bby, library_ms=None, G=geo.G, R=geo.R,
         ptxas={k: v for k, v in usage.items()
                if k.startswith("bt<") and k != "bt<0,0,1>"})
-    phase1_bt_edges(dev)
+    edge_err = phase1_bt_edges(dev)
+    recs["W1"]["max_abs_err"] = max(recs["W1"]["max_abs_err"], edge_err)
     torch.cuda.empty_cache()
     return recs
+
+
+def phase1_walk(out_k, out_p, usage):
+    """W1 on K2's outputs at the path shape: its payload on the kernel's
+    bt (the [B][Lt+1][Wq] storage view) and on the plain version's
+    contiguous bt, each byte-identical to the plain walk on the kernel's
+    bt; W1 and the plain walk timed on that bt in one call.  Bound: the
+    bytes W1 must move (the payload written once, i2/j2/score read once,
+    one bt byte a recorded step), at 3.35 TB/s.  Returns W1's record
+    (``max_abs_err``: payload bytes that differ)."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import viterbi as V
+
+    kmax = LQ + LT + 1
+    args = (out_k[3], out_k[1], out_k[2], out_k[0], kmax)
+    n0 = V.backtrace_walk_packed8.launches
+    got = V.backtrace_walk_packed8(*args)
+    got_c = V.backtrace_walk_packed8(out_p[3], out_p[1], out_p[2],
+                                     out_p[0], kmax)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = V.backtrace_walk_packed8_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if V.backtrace_walk_packed8.launches != n0 + 2:
+        raise AssertionError("W1: the wrapper did not launch the kernel")
+    err = int((got != want).sum()) + int((got_c != want).sum())
+    if err:
+        raise AssertionError(f"W1: {err} payload bytes differ from the "
+                             "plain walk")
+    ms = cuda_ms(lambda: V.backtrace_walk_packed8(*args), 5)
+    B = out_k[0].shape[0]
+    n = want[:, 8:12].cpu().numpy().copy().view(np.int32)[:, 0]
+    steps = int(n.sum())
+    bms, bby = bound_ms(0, B * (12 + kmax) + 12 * B + steps)
+    regs = usage.get("bt_walk_kernel")
+    log(f"phase1 W1 (on K2's bt): B={B} Lq={LQ} Lt={LT} kmax={kmax} "
+        f"{ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {bms:.4f} ms "
+        f"({bby}); walks of {int(n.min())}-{int(n.max())} steps (mean "
+        f"{n.mean():.1f}, {steps} in all); byte-identical on the storage "
+        f"view and on contiguous bytes; ptxas {regs} (registers, spill "
+        "stores, spill loads)")
+    return dict(
+        name="W1 backtrace_walk_packed8 (the Viterbi path walk into the "
+        "payload)", route="cuda", source="hhsuite_tpu_torch/csrc/viterbi.cu",
+        replaces="hhsuite_tpu/ops/viterbi.py:495", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+        ptxas=regs, kmax=kmax, steps=steps)
 
 
 def bt_edge_shapes():
@@ -516,17 +580,20 @@ def phase1_bt_edges(dev):
     """K2 and K3 (global, cell-off, SS table) against the plain version
     at the wavefront's edges, at each group width G: one query row, a
     pass of G*R rows less one, exactly, plus one; one template column;
-    one template; a block left partly empty; and K3 at Lq = 513."""
+    one template; a block left partly empty; and K3 at Lq = 513.  At
+    each, W1 on the kernel's bt and on the plain version's against the
+    plain walk on the plain version's bt; returns the payload bytes that
+    differ (0, or the phase fails)."""
     import functools
 
     import torch
 
     from hhsuite_tpu_torch.ops import viterbi_lanes as VL
-    from hhsuite_tpu_torch.ops.viterbi import (backtrace_walk_packed8,
-                                               viterbi_batch)
+    from hhsuite_tpu_torch.ops.viterbi import (
+        backtrace_walk_packed8, backtrace_walk_packed8_plain, viterbi_batch)
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
-    shift, n, t0 = -0.03, 0, time.perf_counter()
+    shift, n, worst, t0 = -0.03, 0, 0, time.perf_counter()
     orig = VL.bt_geometry
     try:
         for k, (G, Lq, Lt, B) in enumerate(bt_edge_shapes()):
@@ -553,19 +620,24 @@ def phase1_bt_edges(dev):
                     want = call(viterbi_batch, co)
                 kmax = Lq + Lt + 1
                 same = all(bits_equal(a, b) for a, b in zip(got, want))
-                walk = torch.equal(
-                    backtrace_walk_packed8(got[3], *got[1:3], got[0], kmax),
-                    backtrace_walk_packed8(want[3], *want[1:3], want[0],
-                                           kmax))
-                if not (same and walk):
+                plain = backtrace_walk_packed8_plain(want[3], *want[1:3],
+                                                     want[0], kmax)
+                walk = [int((backtrace_walk_packed8(
+                    x[3], *x[1:3], x[0], kmax) != plain).sum())
+                    for x in (got, want)]
+                if not same or any(walk):
                     raise AssertionError(f"{tag} edge G={G} Lq={Lq} Lt={Lt}"
-                                         f" B={B}: kernel != plain version")
+                                         f" B={B}: kernel != plain version"
+                                         f" (W1: {walk} bytes differ)")
+                worst = max(worst, *walk)
                 n += 1
     finally:
         VL.bt_geometry = orig
     log(f"phase1 K2/K3 wavefront edges: {n} cases bit-identical (score, "
-        "i2, j2, bt, walk payload) at G = 8, 16, 32 and Lq = 513 "
-        f"({time.perf_counter() - t0:.1f} s)")
+        "i2, j2, bt), W1's payload byte-identical to the plain walk's on "
+        "the kernel's and the plain version's bt, at G = 8, 16, 32 and Lq "
+        f"= 513 ({time.perf_counter() - t0:.1f} s)")
+    return worst
 
 
 def ss_lut_inputs(Lq, Lt, B, seed, device):
@@ -1515,9 +1587,11 @@ def phase4_full(base, query_text, counters):
         log("phase4 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
         log(f"phase4 {tag} {_realign_split(timers)}")
-        if any(n[k] == 0 for k in ("K1", "K2", "K3") + REALIGN_KEYS):
+        log(f"phase4 {tag} {_backtrace_split(timers)}")
+        if any(n[k] == 0 for k in ("K1", "K2", "K3", "W1") + REALIGN_KEYS):
             raise AssertionError(f"phase4: a kernel of the path was not "
                                  f"launched: {n}")
+        check_walks(f"phase4 {tag}", n)
         if hitlist.N_searched != db.size() or not hits:
             raise AssertionError("phase4: wrong number of templates/hits")
         if not all(math.isfinite(h.score) for h in hits):
@@ -1548,7 +1622,7 @@ def phase4_full(base, query_text, counters):
         f"differ ({len(card_hhr)} lines on the card)")
     profile_query("phase4", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query"),
-        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS)
+        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS + ("W1",))
     return n
 
 
@@ -1572,6 +1646,18 @@ def _realign_split(timers: dict) -> str:
             "host_realign_write")
     return "realign (s): " + ", ".join(
         f"{k} {timers.get(k, 0.0):.4f}" for k in keys)
+
+
+def _backtrace_split(timers: dict) -> str:
+    """The backtrace pass's timers, in seconds: the launches of K2/K3
+    and W1 (``viterbi_backtrace_pass``), the payloads' copy to the host
+    after each junk's last batch (``vit_payload_fetch``), their sum, and
+    the dispatch stage that holds both (``host_vit_dispatch``)."""
+    bt = timers.get("viterbi_backtrace_pass", 0.0)
+    fetch = timers.get("vit_payload_fetch", 0.0)
+    return (f"backtrace (s): viterbi_backtrace_pass {bt:.4f}, "
+            f"vit_payload_fetch {fetch:.4f}, sum {bt + fetch:.4f}, "
+            f"host_vit_dispatch {timers.get('host_vit_dispatch', 0.0):.4f}")
 
 
 def _funnel_counts(timers: dict) -> str:
@@ -1650,13 +1736,16 @@ def phase5_hhblits(base, query_text, counters, dev):
                 + json.dumps(_delta(r["stages"], prev_t)))
             log(f"phase5 {tag} round {r['round']} " + _realign_split(
                 _delta(r["stages"], prev_t)))
+            log(f"phase5 {tag} round {r['round']} " + _backtrace_split(
+                _delta(r["stages"], prev_t)))
             prev_n, prev_t = r["launches"], r["stages"]
         log(f"phase5 {tag} stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
-        if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5")
+        if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "W1")
                + REALIGN_KEYS):
             raise AssertionError(f"phase5: a kernel of the path was not "
                                  f"launched: {n}")
+        check_walks(f"phase5 {tag}", n)
         if not hits or not all(math.isfinite(h.score) for h in hits):
             raise AssertionError("phase5: no hits or non-finite scores")
         if hits[0].Probab < 99.0:
@@ -1706,7 +1795,7 @@ def phase5_hhblits(base, query_text, counters, dev):
     torch.cuda.empty_cache()
     by_name = profile_query("phase5", lambda: run_hhblits(
         Parameters.hhblits_defaults(), query_text, db, "bench_query"),
-        counters, timed=("sweep (K1/K6)", "K4") + REALIGN_KEYS)
+        counters, timed=("sweep (K1/K6)", "K4") + REALIGN_KEYS + ("W1",))
     k5 = [v for name, v in by_name.items() if "pf_wave_kernel<true" in name]
     log(f"phase5 K5 device time: {sum(us for us, _n in k5) / 1e3:.3f} ms "
         f"over {sum(n for _us, n in k5)} launches (profiled warm query; "
@@ -1752,11 +1841,13 @@ def phase6_ss(base, query_text, counters):
         log("phase6 " + tag + " stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in sorted(timers.items())}))
         log(f"phase6 {tag} {_realign_split(timers)}")
+        log(f"phase6 {tag} {_backtrace_split(timers)}")
         if q.nss_pred < 0:
             raise AssertionError("phase6: the query carries no SS")
-        if any(n[k] == 0 for k in ("K6", "K3") + REALIGN_KEYS):
-            raise AssertionError(f"phase6: K6, K3 and R1-R4 must launch: "
-                                 f"{n}")
+        if any(n[k] == 0 for k in ("K6", "K3", "W1") + REALIGN_KEYS):
+            raise AssertionError(f"phase6: K6, K3, W1 and R1-R4 must "
+                                 f"launch: {n}")
+        check_walks(f"phase6 {tag}", n)
         if hitlist.N_searched != db.size() or not hits:
             raise AssertionError("phase6: wrong number of templates/hits")
         if not all(math.isfinite(h.score) for h in hits):
@@ -1770,7 +1861,7 @@ def phase6_ss(base, query_text, counters):
         last = now
     by_name = profile_query("phase6", lambda: engine.run_hhsearch(
         Parameters.hhsearch_defaults(), query_text, db, "bench_query_ss"),
-        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS)
+        counters, timed=("sweep (K1/K6)",) + REALIGN_KEYS + ("W1",))
     k3 = [v for name, v in by_name.items() if "vit_bt_kernel" in name]
     log(f"phase6 K3 device time: {sum(us for us, _n in k3) / 1e3:.2f} ms "
         f"over {sum(n for _us, n in k3)} launches (profiled warm query)")
@@ -1785,6 +1876,7 @@ TIMED = {"sweep (K1/K6)": ("viterbi_lanes", "hh_vit_score", ("K1", "K6"),
                 "pf_wave_kernel<false")}
 TIMED.update({key: ("posterior_batch", entry, (key,), kname)
               for key, (kname, _n, _r, entry) in REALIGN_KERNELS.items()})
+TIMED["W1"] = ("viterbi_lanes", "hh_vit_walk", ("W1",), "bt_walk_kernel")
 
 
 @contextlib.contextmanager
@@ -1882,6 +1974,8 @@ def profile_query(tag, run, counters, timed=("sweep (K1/K6)",)):
         if len(ev_ms) != sum(n[k] for k in keys):
             raise AssertionError(f"{tag}: {len(ev_ms)} timed {label} "
                                  f"launches, counters {n}")
+        if label == "W1":
+            check_walks(tag, n)
         if p_n != len(ev_ms):
             log(f"{tag} the profiler recorded {p_n} of {len(ev_ms)} {label} "
                 "launches: they left the host at "
@@ -1902,12 +1996,21 @@ def kernel_counters():
     from hhsuite_tpu_torch.ops.viterbi_rows import viterbi_batch_rows
 
     from hhsuite_tpu_torch.ops import posterior_batch as PB
+    from hhsuite_tpu_torch.ops.viterbi import backtrace_walk_packed8
 
     return {"K1": viterbi_score_lanes_fused, "K2": viterbi_backtrace_lanes,
             "K3": viterbi_batch_rows, "K4": ungapped_scores,
             "K5": gapped_scores, "K6": viterbi_score_lanes,
             "R1": PB.fb_forward, "R2": PB.fb_backward, "R3": PB.mac_dp,
-            "R4": PB.mac_walk_packed8}
+            "R4": PB.mac_walk_packed8, "W1": backtrace_walk_packed8}
+
+
+def check_walks(tag, n):
+    """Each K2/K3 launch of the backtrace pass is walked by one W1
+    launch: fail otherwise."""
+    if n["W1"] != n["K2"] + n["K3"]:
+        raise AssertionError(f"{tag}: {n['W1']} W1 launches, K2 + K3 "
+                             f"{n['K2'] + n['K3']}")
 
 
 def reset(counters):
@@ -1926,9 +2029,9 @@ def phase0_builds() -> dict:
     print ptxas's registers and spills of every wavefront kernel
     instantiation: the eight of vit_bt_kernel (K2/K3) and the twelve of
     vit_score_kernel (K1/K6: fast, exact, dense SS, SS table at G = 8,
-    16, 32), and of the four realign kernels (R1-R4).  Returns
-    :func:`wave_instantiations` of the viterbi build and the realign
-    kernels' usage under their names."""
+    16, 32), of the four realign kernels (R1-R4) and of the walk (W1).
+    Returns :func:`wave_instantiations` of the viterbi build and the
+    realign kernels' and the walk's usage under their names."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hhsuite_tpu_torch import native
@@ -1965,7 +2068,11 @@ def phase0_builds() -> dict:
         for kname, *_rest in REALIGN_KERNELS.values():
             if kname in name:
                 usage[kname] = u
-    for key, (kname, *_rest) in REALIGN_KERNELS.items():
+    for name, u in ptxas_usage(infos["viterbi"].log).items():
+        if "bt_walk_kernel" in name:
+            usage["bt_walk_kernel"] = u
+    for key, (kname, *_rest) in list(REALIGN_KERNELS.items()) + [
+            ("W1", ("bt_walk_kernel",))]:
         if kname not in usage:
             raise AssertionError(f"phase0: ptxas reported no {kname}")
         regs, st, ld = usage[kname]
@@ -2116,13 +2223,13 @@ def main() -> int:
 
         phase3_card_vs_cpu(work, [
             ("512 templates", hhsearch(base512, "100"),
-             ("K1",) + REALIGN_KEYS, ("-o",)),
+             ("K1", "W1") + REALIGN_KEYS, ("-o",)),
             (f"{N_FAMILY_SMALL} SS templates", hhsearch(base_ss_small, "30"),
-             ("K6",) + REALIGN_KEYS, ("-o",)),
+             ("K6", "W1") + REALIGN_KEYS, ("-o",)),
             (f"hhblits -n 2, {N_FAMILY_SMALL} templates + {N_DECOYS_SMALL} "
              "decoys", ["hhblits", "-i", base_small + ".query.a3m", "-d",
-                        base_small_d, "-n", "2"], ("K4", "K5") + REALIGN_KEYS,
-             ("-o", "-oa3m"))], counters)
+                        base_small_d, "-n", "2"],
+             ("K4", "K5", "W1") + REALIGN_KEYS, ("-o", "-oa3m"))], counters)
         t_phase = phase_ok(3, t_phase)
         with open(base8k + ".query.a3m") as f:
             q8k = f.read()
@@ -2142,15 +2249,15 @@ def main() -> int:
             db_proc.wait()
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches: K1-K3 and R1-R4 on the hhsearch path (phase 4), K4/K5 on
-    # the hhblits path (phase 5), K6 on the SS hhsearch path (phase 6);
+    # launches: K1-K3, R1-R4 and W1 on the hhsearch path (phase 4), K4/K5
+    # on the hhblits path (phase 5), K6 on the SS hhsearch path (phase 6);
     # each also with its hhblits and SS counts
     main_path = {"K1": launches, "K2": launches, "K3": launches,
                  "K4": launches_blits, "K5": launches_blits,
-                 "K6": launches_ss}
+                 "K6": launches_ss, "W1": launches}
     main_path.update({key: launches for key in REALIGN_KEYS})
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K6") + REALIGN_KEYS:
+    for key in ("K1", "K2", "K3", "K4", "K5", "K6") + REALIGN_KEYS + ("W1",):
         r = dict(recs[key])
         r["launches"] = main_path[key][key]
         r["launches_hhblits"] = launches_blits[key]

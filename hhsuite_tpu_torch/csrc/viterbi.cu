@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the HMM-HMM Viterbi search.
 //
-// Replaces four Pallas TPU kernels of the JAX package:
+// Replaces four Pallas TPU kernels of the JAX package, and its device
+// backtrace walk (plain jnp/lax there):
 //   K1  hhsuite_tpu/ops/viterbi_lanes.py : viterbi_score_lanes_fused
 //       (score-only sweep, profile dot and log2 fused; si_mode fast|exact)
 //       -> vit_score_kernel<FAST, SS_NONE, G> / hh_vit_score
@@ -15,6 +16,11 @@
 //       (score-only sweep, Si = log2f4(dot) + shift + a secondary-
 //       structure term, dense or through a lookup table; f32 Si only)
 //       -> vit_score_kernel<false, SS_DENSE | SS_LUT, G> / hh_vit_score
+//   W1  hhsuite_tpu/ops/viterbi.py : _backtrace_walk_packed8 (:495) and
+//       backtrace_walk_packed8_words (:389), driven by _walk_chunked
+//       (:458): the walk from K2/K3's best cell over their backtrace
+//       bytes into the packed payload
+//       -> bt_walk_kernel / hh_vit_walk
 //
 // Exactness.  Every cell evaluates the same f32 expressions, in the same
 // order, as the plain PyTorch versions beside the wrappers
@@ -86,10 +92,22 @@
 // reads its query row from shared memory (7 16-byte loads, no broadcast
 // between groups at G = 32).  Queries longer than G x 8 rows pay G-1
 // fill and drain steps and the scratch round trip a pass.
+//
+// W1 (bt_walk_kernel) is one thread a lane in blocks of 128, R4's form
+// (csrc/posterior.cu:mac_walk_kernel).  Its work is a chain of dependent
+// byte loads, one a step, a few hundred a lane, from backtrace bytes that
+// at the hot path's batch (B = 4096, Lq = 320, Lt = 384: ~530 MB) lie
+// far outside L2; the bytes it must move are the payload and one byte a
+// step (~5 MB), so its time is the latency of the longest chains, not
+// the bound.  It never waits on the host: every lane stops at STOP or at
+// kmax.  Its payload stores are one byte a thread and step, a row apart
+// across the warp; staging them in shared memory or a warp per group of
+// lanes is later work.
 
 #include <cfloat>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -589,6 +607,53 @@ int launch_bt(int G, int smem, cudaStream_t stream, const float* qp,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ W1 --
+// The backtrace walk, one thread a lane: from (i2, j2) in state MM over at
+// most kmax steps, the step rules of ops/viterbi.py:
+// backtrace_walk_packed8_plain (src/hhviterbi.cpp:83-160).  A step
+// records the state; it is blocked when the state moves neither i nor j
+// (STOP, the unused codes 1 and 7) or would cross row or column 1, and a
+// blocked step turns the state into STOP; else the byte at (i, j) gives
+// MM's next state (bits 0-2) or takes a gap state back to MM (its bit,
+// 8 << (state - GD)), and i and j move.  bt is read in place through
+// three byte strides.  The thread writes its own payload row: score f32,
+// i2 int16, j2 int16, n int32 (the steps recorded before STOP),
+// st[kmax] with zeros after the last recorded step; little-endian.
+constexpr int WALK_THREADS = 128;
+
+__global__ void __launch_bounds__(WALK_THREADS) bt_walk_kernel(
+    const uint8_t* __restrict__ bt, long long sb, long long si,
+    long long sj, const int* __restrict__ i2, const int* __restrict__ j2,
+    const float* __restrict__ score, int B, int kmax,
+    uint8_t* __restrict__ out) {
+  const int b = blockIdx.x * WALK_THREADS + threadIdx.x;
+  if (b >= B) return;
+  const uint8_t* bb = bt + b * sb;
+  uint8_t* o = out + (long long)b * (12 + kmax);
+  int i = i2[b], j = j2[b], s = MM, n = 0, k = 0;
+  for (; k < kmax && s != STOP; ++k) {
+    o[12 + k] = (uint8_t)s;
+    ++n;
+    const bool di = s == MM || s == DG || s == MI;
+    const bool dj = s == MM || s == GD || s == IM;
+    if ((!di && !dj) || (di && i <= 1) || (dj && j <= 1)) {
+      s = STOP;
+      continue;
+    }
+    const int c = bb[i * si + j * sj];
+    s = s == MM ? (c & 7) : (c & (8 << (s - GD))) ? MM : s;
+    i -= di;
+    j -= dj;
+  }
+  for (; k < kmax; ++k) o[12 + k] = 0;
+  const float sc = score[b];
+  const int16_t hi = (int16_t)i2[b], hj = (int16_t)j2[b];
+  memcpy(o, &sc, 4);
+  memcpy(o + 4, &hi, 2);
+  memcpy(o + 6, &hj, 2);
+  memcpy(o + 8, &n, 4);
+}
+
 }  // namespace
 
 extern "C" {
@@ -692,6 +757,24 @@ int hh_vit_bt(const float* qp, const float* qtr, const float* tp,
     default: HH_BT(true, true, true);
   }
 #undef HH_BT
+}
+
+// W1.  bt: the (B, Lq+1, Lt+1) backtrace bytes at byte strides sb, si, sj
+// (K2/K3's [B][Lt+1][Wq] storage: (Lt+1) Wq, 1, Wq, bt at its byte
+// BT_ROW0; contiguous: (Lq+1)(Lt+1), Lt+1, 1); i2, j2 (B,) i32 in range
+// (0 <= i2 <= Lq, 0 <= j2 <= Lt, not checked); score (B,) f32.  Out: out
+// (B, 12 + kmax) bytes.  Returns the cudaError_t of the launch,
+// cudaErrorInvalidValue for B < 0, kmax < 1 or a null pointer.
+int hh_vit_walk(const uint8_t* bt, long long sb, long long si, long long sj,
+                const int* i2, const int* j2, const float* score, int B,
+                int kmax, uint8_t* out, void* stream) {
+  if (B < 0 || kmax < 1 || !bt || !i2 || !j2 || !score || !out)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  bt_walk_kernel<<<(B + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0,
+                   (cudaStream_t)stream>>>(bt, sb, si, sj, i2, j2, score, B,
+                                           kmax, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """Batched 5-pair-state Viterbi HMM-HMM alignment: the plain PyTorch
-version, the device-side backtrace walk and the host decoders.
+version, the backtrace walk (W1) and the host decoders.
 
 :func:`viterbi_batch` reimplements the recurrence of
 src/hhviterbialgorithm.cpp:45-497 as an anti-diagonal wavefront over a
@@ -21,6 +21,15 @@ then i asc, then j asc — the reference's strictly-greater row-major
 update, src/hhviterbialgorithm.cpp:423-455) and the backtrace byte
 matrix (bits 0-2: MM predecessor code, bit3/4/5/6: GD/IM/DG/MI opened
 from MM; src/hhviterbimatrix.h:29-85).
+
+W1 :func:`backtrace_walk_packed8` replaces the JAX package's compiled
+walks (hhsuite_tpu/ops/viterbi.py:_backtrace_walk_packed8,
+backtrace_walk_packed8_words): from each lane's best cell over its
+backtrace bytes into a packed payload of state bytes, read by
+:func:`backtrace_walk_unpack8` and the native decoder.  On a CPU tensor
+it runs its plain version (:func:`backtrace_walk_packed8_plain`, a loop
+of torch ops); on a CUDA tensor it launches ``csrc/viterbi.cu:
+bt_walk_kernel`` or raises.
 """
 
 from __future__ import annotations
@@ -289,11 +298,14 @@ _WALK_DI = (0, 0, 1, 0, 0, 1, 1, 0)
 _WALK_DJ = (0, 0, 1, 1, 1, 0, 0, 0)
 
 
-def backtrace_walk_packed8(bt, i2, j2, score, kmax: int, chunk: int = 64):
-    """Minimal-payload device walk over the (B, Lq+1, Lt+1) backtrace
-    bytes (any strides: the kernels' lanes-last bt is read in place):
-    ONE int8 array of [score(4B) i2(2B) j2(2B) n(4B) st[kmax](1B each)]
-    per lane, the ``_backtrace_walk_packed8`` format of the JAX package.
+def backtrace_walk_packed8_plain(bt, i2, j2, score, kmax: int,
+                                 chunk: int = 64):
+    """The plain version of W1 (:func:`backtrace_walk_packed8`): the walk
+    over the (B, Lq+1, Lt+1) backtrace bytes (any strides: the kernels'
+    lanes-last bt is read in place) as a loop of torch ops, one step at
+    a time: ONE int8 array of [score(4B) i2(2B) j2(2B) n(4B) st[kmax](1B
+    each)] per lane, the ``_backtrace_walk_packed8`` format of the JAX
+    package.
 
     Same step rules as the scalar :func:`backtrace`
     (src/hhviterbi.cpp:83-160).  The (ii, jj) step positions are not
@@ -338,9 +350,53 @@ def backtrace_walk_packed8(bt, i2, j2, score, kmax: int, chunk: int = 64):
     return torch.cat([header, st], dim=1)
 
 
+def backtrace_walk_packed8(bt, i2, j2, score, kmax: int):
+    """W1: the walk payload (B, 12 + kmax) int8 of
+    :func:`backtrace_walk_packed8_plain` — its plain version on a CPU
+    ``bt``, the CUDA kernel (``csrc/viterbi.cu:bt_walk_kernel``) on a
+    card's, reading bt in place through its strides.
+    ``backtrace_walk_packed8.launches`` counts kernel launches."""
+    if bt.device.type == "cpu":
+        return backtrace_walk_packed8_plain(bt, i2, j2, score, kmax)
+    return launch_walk(bt, i2, j2, score, kmax)
+
+
+backtrace_walk_packed8.launches = 0
+
+
+def launch_walk(bt, i2, j2, score, kmax: int):
+    """Launch W1 on the card: ``bt`` (B, Lq+1, Lt+1) uint8 of any strides
+    (K2/K3's storage view or contiguous bytes, no copy), i2, j2, score
+    (B,); raises ValueError for another type or shape, RuntimeError when
+    the C entry refuses the launch (kmax < 1)."""
+    from . import viterbi_lanes as VL
+
+    dev = VL._require_cuda(bt)
+    if bt.dtype != torch.uint8 or bt.dim() != 3:
+        raise ValueError(f"W1 walk: bt must be (B, Lq+1, Lt+1) uint8, not "
+                         f"{bt.dtype} {tuple(bt.shape)}")
+    B = bt.shape[0]
+    i2 = i2.to(dev, torch.int32).contiguous()
+    j2 = j2.to(dev, torch.int32).contiguous()
+    score = torch.as_tensor(score).to(dev, torch.float32).contiguous()
+    if not (i2.shape == j2.shape == score.shape == (B,)):
+        raise ValueError(f"W1 walk: i2, j2 and score must be ({B},)")
+    out = torch.empty((B, 12 + max(int(kmax), 0)), dtype=torch.int8,
+                      device=dev)
+    if B == 0:
+        return out
+    lib = VL.cuda_lib()
+    rc = lib.hh_vit_walk(bt.data_ptr(), *bt.stride(), i2.data_ptr(),
+                         j2.data_ptr(), score.data_ptr(), B, int(kmax),
+                         out.data_ptr(), VL._stream(dev))
+    VL._check(lib, rc, "W1 backtrace walk")
+    backtrace_walk_packed8.launches += 1
+    return out
+
+
 def backtrace_walk_unpack8(packed, kmax):
     """Fetch + unpack the int8 walk: positions rebuilt on host from
-    the state bytes (see backtrace_walk_packed8)."""
+    the state bytes (see backtrace_walk_packed8_plain)."""
     packed = np.ascontiguousarray(np.asarray(packed))
     sc_v = packed[:, 0:4].copy().view(np.float32)[:, 0]
     i2_v = packed[:, 4:6].copy().view(np.int16)[:, 0].astype(np.int32)

@@ -43,7 +43,7 @@ Viterbi (no cell-off, no SS) with score, best cell (score desc, i asc,
 j asc) and the backtrace bytes, bit-identical to
 :func:`ops.viterbi.viterbi_batch`.  The bytes come back as a (B, Lq+1,
 Lt+1) view of [B][Lt+1][Wq] storage (:func:`ops.viterbi.bt_storage`),
-which the device walk (:func:`ops.viterbi.backtrace_walk_packed8`) reads
+which the walk W1 (:func:`ops.viterbi.backtrace_walk_packed8`) reads
 in place.
 """
 
@@ -75,6 +75,9 @@ def bind(lib):
     lib.hh_bt_smem_bytes.restype = I
     lib.hh_bt_col_stride.argtypes = [I]
     lib.hh_bt_col_stride.restype = I
+    L = ctypes.c_longlong
+    lib.hh_vit_walk.argtypes = [P, L, L, L, P, P, P, I, I, P, P]
+    lib.hh_vit_walk.restype = I
     lib.hh_error_string.argtypes = [I]
     lib.hh_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,9 +13,11 @@ cell-off masks on the device from band intervals.
 Kernels on this path (``ops/``): K1 ``viterbi_score_lanes_fused`` (the
 funnel's score-only sweep), K6 ``viterbi_score_lanes`` (the sweep when
 secondary structure enters the DP), K2 ``viterbi_backtrace_lanes`` (the
-hot backtrace pass) and K3 ``viterbi_batch_rows`` (altali passes, SS in
-the DP, global mode, long queries).  On the CPU every wrapper runs its plain
-PyTorch version, so one code path serves both devices.
+hot backtrace pass), K3 ``viterbi_batch_rows`` (altali passes, SS in
+the DP, global mode, long queries) and W1 ``backtrace_walk_packed8``
+(the walk of each K2/K3 batch into its payload; a junk's payloads are
+copied to the host after its last batch).  On the CPU every wrapper
+runs its plain PyTorch version, so one code path serves both devices.
 """
 
 from __future__ import annotations
@@ -437,8 +439,8 @@ class ResidentTemplatePack:
 
 
 def _payload(packed: torch.Tensor) -> np.ndarray:
-    """Bring a device walk payload to the host (the only per-batch
-    device->host transfer of the backtrace passes)."""
+    """Bring a walk payload to the host (the backtrace passes' only
+    device->host transfer)."""
     return np.ascontiguousarray(packed.cpu().numpy())
 
 
@@ -664,13 +666,21 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                         local=bool(par.loc), Lq_true=q.L,
                         penalty_gap_query=par.egq,
                         penalty_gap_template=par.egt, **ss_kw)
-                # walk the backtrace on the device: only an int8 state
-                # string + header per lane reaches the host
-                packed = _payload(V.backtrace_walk_packed8(
-                    bt, i2, j2, score, kmax=kmax))
+                # walk the backtrace on the device (W1): only an int8
+                # state string + header per lane reaches the host, after
+                # the junk's last batch
+                packed = V.backtrace_walk_packed8(bt, i2, j2, score,
+                                                  kmax=kmax)
                 del bt, cell_off
             pending.append((idxs, batch, ss_hmm_mode, packed, kmax))
-        stage_add("host_vit_dispatch", _time.perf_counter() - _t_p1)
+        # one wait for the whole junk: the payloads come to the host once
+        # every batch has been launched
+        _t_f = _time.perf_counter()
+        pending = [(idxs, batch, mode, _payload(packed), kmax)
+                   for idxs, batch, mode, packed, kmax in pending]
+        now = _time.perf_counter()
+        stage_add("vit_payload_fetch", now - _t_f)
+        stage_add("host_vit_dispatch", now - _t_p1)
 
         from ..native import load as _load_native
 

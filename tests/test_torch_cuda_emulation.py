@@ -10,12 +10,17 @@ the pass boundary, the template ring, the best-cell reduction, the
 backtrace and cell-off storage, the SS table) and the K1/K6 sweep on
 the same wavefront (fast, exact, SS table and dense SS at each group
 width, across the pass boundary), bit for bit against ``viterbi_batch``
-/ ``viterbi_score_lanes_plain``.
+/ ``viterbi_score_lanes_plain``; and the walk W1 (``launch_walk``) byte
+for byte against ``backtrace_walk_packed8_plain`` on K2/K3's storage
+view and on contiguous bytes, at every shape of
+``chip_smoke.bt_edge_shapes``, with a lane of padding, planted codes 1
+and 7 and a kmax shorter than the paths.
 IEEE f32 on both sides (g++ -ffp-contract=off, as nvcc -fmad=false).
 Skips where g++ is missing.
 """
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -29,6 +34,7 @@ from hhsuite_tpu_torch.device import CSRC_DIR
 from hhsuite_tpu_torch.ops import viterbi as TV
 from hhsuite_tpu_torch.ops import viterbi_lanes as VL
 from hhsuite_tpu_torch.search.viterbi_search import to_device_pack
+from chip_smoke import bt_edge_shapes
 from test_torch_viterbi import make_inputs
 from test_torch_viterbi_kernels import _ss_lut_inputs
 
@@ -193,3 +199,112 @@ def test_emulated_bt_entry_refuses_other_geometries(emulated, monkeypatch):
                         lambda *a, **kw: geometry(*a, **kw)._replace(G=4))
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         VL.launch_bt(qp, qtr, tp, ttr, tl, None, -0.03, True, None)
+
+
+# ------------------------------------------------------------------ W1 --
+
+# every (Lq, Lt, B) of the K2/K3 wavefront edges (the walk has no group
+# width): on K2/K3's storage view and on contiguous bytes, the last lane
+# padding (i2 = j2 = 0); on three of them also planted codes 1 and 7
+# and a kmax of 5
+WALK_SHAPES = sorted({(Lq, Lt, B) for _G, Lq, Lt, B in bt_edge_shapes()})
+WALK_CASES = [(*shape, layout, "pad") for shape in WALK_SHAPES
+              for layout in ("storage", "contiguous")] + [
+    (*shape, layout, variant) for shape in WALK_SHAPES[-3:]
+    for variant in ("codes", "short") for layout in ("storage", "contiguous")]
+
+
+def _walk_case_id(case):
+    Lq, Lt, B, layout, variant = case
+    return f"Lq{Lq}-Lt{Lt}-B{B}-{layout}-{variant}"
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_dp(Lq, Lt, B):
+    """The plain Viterbi on seeded profiles, local when Lq is even, else
+    global: (score, i2, j2, bt contiguous), CPU tensors."""
+    qp, qtr, tp, ttr, tl, _co = _inputs(Lq, Lt, B, seed=Lq + Lt + B)
+    return TV.viterbi_batch(qp, qtr, tp, ttr, None, tl, -0.03,
+                            local=Lq % 2 == 0)
+
+
+def walk_case(Lq, Lt, B, layout, variant, device="cpu"):
+    """W1's inputs for one :data:`WALK_CASES` entry on ``device``: (bt in
+    ``layout``, i2, j2, score, kmax), and the contiguous bt on the CPU.
+    ``pad``: the last lane (of several) has i2 = j2 = 0; ``codes``: 5% of
+    the bytes carry the unused codes 1 or 7 in bits 0-2; ``short``: kmax
+    = 5, shorter than most paths."""
+    score, i2, j2, bt = _walk_dp(Lq, Lt, B)
+    i2, j2 = i2.clone(), j2.clone()
+    kmax = 5 if variant == "short" else Lq + Lt + 1
+    if variant == "pad" and B > 1:
+        i2[-1] = j2[-1] = 0
+    if variant == "codes":
+        rng = np.random.default_rng(Lq)
+        b = bt.numpy().copy()
+        hit = rng.random(b.shape) < 0.05
+        b[hit] = (b[hit] & 0xF8) | rng.choice([1, 7], int(hit.sum()))
+        bt = torch.from_numpy(b)
+    if layout == "storage":
+        store, dev_bt = TV.bt_storage(B, Lq, Lt, torch.uint8, device)
+        store.fill_(0xAB)           # bytes outside the view never matter
+        dev_bt.copy_(bt)
+    else:
+        dev_bt = bt.to(device)
+    return ((dev_bt, i2.to(device), j2.to(device), score.to(device), kmax),
+            bt)
+
+
+def check_walk_payload(got, case, bt, i2, j2, score, kmax):
+    """``got`` equals the plain walk byte for byte, and the case shows
+    what it plants."""
+    want = TV.backtrace_walk_packed8_plain(bt, i2.cpu(), j2.cpu(),
+                                           score.cpu(), kmax)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    n = want[:, 8:12].numpy().copy().view(np.int32)[:, 0]
+    st = want[:, 12:].numpy()
+    Lq, Lt, B, _layout, variant = case
+    if variant == "pad" and B > 1:
+        assert int(n[-1]) == 1 and int(st[-1, 0]) == TV.MM
+    if variant == "codes":
+        assert ((st == 1) | (st == 7)).any()
+    if variant == "short":
+        assert (n == kmax).any()
+    assert int(n.max()) > 1 or Lq == 1 or Lt == 1
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=_walk_case_id)
+def test_emulated_walk_byte_identical(emulated, case):
+    args, bt = walk_case(*case)
+    if case[3] == "storage":
+        assert TV.bt_base(args[0]) is not None
+    n0 = TV.backtrace_walk_packed8.launches
+    got = TV.launch_walk(*args)
+    assert TV.backtrace_walk_packed8.launches == n0 + 1
+    check_walk_payload(got, case, bt, *args[1:])
+
+
+def test_emulated_walk_refusals(emulated, emu_lib):
+    """The C entry refuses B < 0, kmax < 1 and a null pointer; the
+    wrapper raises RuntimeError for the entry's refusal and ValueError
+    for a bt that is not uint8."""
+    (bt, i2, j2, score, _kmax), _bt = walk_case(37, 29, 11, "contiguous",
+                                                "pad")
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        TV.launch_walk(bt, i2, j2, score, 0)
+    with pytest.raises(ValueError, match="uint8"):
+        TV.launch_walk(bt.to(torch.int8), i2, j2, score, 10)
+    out = torch.empty((11, 22), dtype=torch.int8)
+    ptrs = [x.data_ptr() for x in (bt, i2, j2, score)] + [out.data_ptr()]
+    for k in range(len(ptrs)):
+        bad = list(ptrs)
+        bad[k] = None
+        assert emu_lib.hh_vit_walk(bad[0], *bt.stride(), *bad[1:4], 11, 10,
+                                   bad[4], None) != 0
+    assert emu_lib.hh_vit_walk(*ptrs[:1], *bt.stride(), *ptrs[1:4], -1, 10,
+                               ptrs[4], None) != 0
+    assert emu_lib.hh_vit_walk(*ptrs[:1], *bt.stride(), *ptrs[1:4], 11, 0,
+                               ptrs[4], None) != 0
+    assert emu_lib.hh_vit_walk(*ptrs[:1], *bt.stride(), *ptrs[1:4], 11, 10,
+                               ptrs[4], None) == 0

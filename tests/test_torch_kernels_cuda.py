@@ -9,7 +9,10 @@ padding only), and K4 and K5 at their wavefront's edges at each group
 width, with the sequences of one warp far apart in length; the realign
 kernels R1-R3 bit for bit and R4 byte for byte at their edges
 (``chip_smoke.realign_edge_shapes``) and at the path's chunk of 256 hits,
-SS on and off, local and global.  Needs a CUDA card;
+SS on and off, local and global; the walk W1 byte for byte on K2/K3's
+storage view and on contiguous bytes at every K2/K3 edge shape, with a
+lane of padding, planted codes 1 and 7 and a short kmax (``-k walk``).
+Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
 python -m pytest -m gpu tests/test_torch_kernels_cuda.py
@@ -40,6 +43,8 @@ from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
 from test_torch_viterbi_kernels import _ss_lut_inputs
+from test_torch_cuda_emulation import (WALK_CASES, _walk_case_id,
+                                       check_walk_payload, walk_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -100,12 +105,15 @@ def _ss_table(dev, shape, seed):
 
 
 def _check_bt(got, want, kmax):
-    """score, i2, j2 and bt bit for bit, and the same walk payload."""
+    """score, i2, j2 and bt bit for bit, and the same walk payload: W1 on
+    the kernel's bt, the plain walk on the plain version's."""
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _same(a, b)
+    n = TV.backtrace_walk_packed8.launches
     pa = TV.backtrace_walk_packed8(got[3], *got[1:3], got[0], kmax)
-    pb = TV.backtrace_walk_packed8(want[3], *want[1:3], want[0], kmax)
+    assert TV.backtrace_walk_packed8.launches == n + 1
+    pb = TV.backtrace_walk_packed8_plain(want[3], *want[1:3], want[0], kmax)
     assert torch.equal(pa, pb)
 
 
@@ -358,3 +366,24 @@ def test_realign_kernels_global_scratch(cuda, monkeypatch):
     monkeypatch.setattr(PB, "mac_dp", PB.mac_dp_plain)
     want = PB.fb_mac_batch(*args)
     assert all(_same(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=_walk_case_id)
+def test_walk_kernel_byte_identical(cuda, case):
+    args, bt = walk_case(*case, device=cuda)
+    if case[3] == "storage":
+        assert TV.bt_base(args[0]) is not None
+    n = TV.backtrace_walk_packed8.launches
+    got = TV.backtrace_walk_packed8(*args)
+    torch.cuda.synchronize()
+    assert TV.backtrace_walk_packed8.launches == n + 1
+    check_walk_payload(got, case, bt, *args[1:])
+
+
+def test_walk_kernel_refusals(cuda):
+    (bt, i2, j2, score, _kmax), _bt = walk_case(37, 29, 11, "contiguous",
+                                                "pad", device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        TV.backtrace_walk_packed8(bt, i2, j2, score, 0)
+    with pytest.raises(ValueError, match="uint8"):
+        TV.backtrace_walk_packed8(bt.to(torch.int8), i2, j2, score, 10)

@@ -14,6 +14,10 @@ taken by the JAX package's rule), with the plain versions of R1-R4:
 * global mode (-glob) on both databases: the same alignments and printed
   output as the host decoder, every template padded to its chunk's
   width exiting through its own last column;
+* secondary structure in the DP and the realign (``-ssm 2``) on a
+  16-template ``build_ss_db`` database, local and -glob: the host
+  decoder's alignments and printed .hhr and m8 (Sum_probs through the
+  sums, within f32 tolerance);
 * the routing rule itself: card, no -omat, at least 4 hits.
 """
 
@@ -172,6 +176,61 @@ def test_device_realign_printed_output_parity(multi_outputs):
 def test_device_realign_printed_output_parity_global(multi_db_dir):
     host, dev = _host_and_device(multi_db_dir, False)
     assert "No 1" in host
+    assert host == dev
+
+
+@pytest.fixture(scope="module")
+def ss_db(tmp_path_factory):
+    """A 16-template family database with predicted SS rows
+    (tools/benchdb.py:build_ss_db) and its SS-annotated query."""
+    from hhsuite_tpu_torch.tools.benchdb import build_bench_db, build_ss_db
+
+    tmp = tmp_path_factory.mktemp("ssdb_dev")
+    fam = str(tmp / "fam")
+    query = build_bench_db(fam, n_templates=16, L0=120, with_hhm=False)
+    return str(tmp / "ss"), build_ss_db(str(tmp / "ss"), fam, query)
+
+
+@pytest.mark.parametrize("loc", [True, False], ids=["local", "glob"])
+def test_device_realign_printed_output_parity_ss(ss_db, loc):
+    """-ssm 2: the forced batched path (SS factors in R1/R2) gives the
+    host decoder's alignments and prints its .hhr and m8.  The printed
+    Sum_probs are compared through the hits' sums, within
+    :func:`_same_hits`' tolerance: the batched path sums the posteriors
+    in f32, so a sum that lies on a rounding edge of its one decimal can
+    print one digit apart (on this database 112.9 against 112.8 for a
+    difference of 7e-5 in local mode)."""
+    base, query = ss_db
+    runs = []
+    with pytest.MonkeyPatch.context() as mp:
+        calls = []
+        batch = eng.PosteriorDecoder.realign_batch_device
+
+        def counted(self, *a, **kw):
+            calls.append(len(a[1]))
+            return batch(self, *a, **kw)
+
+        mp.setattr(eng.PosteriorDecoder, "realign_batch_device", counted)
+        for device_path in (False, True):
+            _force(mp, device_path)
+            par = Parameters()
+            par.nocontxt = True
+            par.loc = loc
+            par.prefilter = False
+            par.num_rounds = 1
+            q, hitlist = eng.run_hhsearch(par, query, eng.HHDatabase(base),
+                                          "query.a3m", device="cpu")
+            assert q.nss_pred >= 0 and par.ssm == 2
+            text = _render(par, q, hitlist, print_hit_list,
+                           print_alignments, print_m8,
+                           get_substitution_matrix(par.matrix).S)
+            runs.append((list(hitlist),
+                         re.sub(r"Sum_probs=\S+", "Sum_probs=", text)))
+            assert bool(calls) == device_path
+        assert sum(calls) >= 4
+    (host_hits, host), (dev_hits, dev) = runs
+    _same_hits(host_hits, dev_hits)
+    assert "No 1" in host and "Sum_probs=" in host
     assert host == dev
 
 

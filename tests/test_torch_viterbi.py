@@ -79,7 +79,7 @@ def test_device_walk_payload_matches_jax(shape):
     want = np.asarray(JV._backtrace_walk_packed8(
         jnp.asarray(btj), jnp.asarray(ij), jnp.asarray(jj), jnp.asarray(sj),
         kmax=kmax))
-    got = TV.backtrace_walk_packed8(
+    got = TV.backtrace_walk_packed8_plain(
         torch.from_numpy(btj.copy()), torch.from_numpy(ij.copy()),
         torch.from_numpy(jj.copy()), torch.from_numpy(sj.copy()),
         kmax).numpy()
@@ -99,9 +99,9 @@ def test_walk_reads_lanes_last_view():
     view = torch.from_numpy(np.ascontiguousarray(
         btj.transpose(1, 2, 0))).permute(2, 0, 1)
     args = [torch.from_numpy(x.copy()) for x in (ij, jj, sj)]
-    a = TV.backtrace_walk_packed8(view, *args, 47).numpy()
-    b = TV.backtrace_walk_packed8(torch.from_numpy(btj.copy()), *args,
-                                  47).numpy()
+    a = TV.backtrace_walk_packed8_plain(view, *args, 47).numpy()
+    b = TV.backtrace_walk_packed8_plain(torch.from_numpy(btj.copy()), *args,
+                                        47).numpy()
     np.testing.assert_array_equal(a, b)
 
 
@@ -120,10 +120,22 @@ def test_walk_reads_kernel_storage_view(shape):
                              TV.bt_col_bytes(Lq))
     kmax = Lq + Lt + 1
     args = [torch.from_numpy(x.copy()) for x in (ij, jj, sj)]
-    a = TV.backtrace_walk_packed8(view, *args, kmax).numpy()
-    b = TV.backtrace_walk_packed8(view.contiguous(), *args, kmax).numpy()
+    a = TV.backtrace_walk_packed8_plain(view, *args, kmax).numpy()
+    b = TV.backtrace_walk_packed8_plain(view.contiguous(), *args,
+                                        kmax).numpy()
     np.testing.assert_array_equal(a, b)
     assert (a[:, 12:] != 0).any()
+
+
+def test_walk_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):
+    """W1's wrapper on CPU tensors: the plain version's payload, no
+    kernel launch."""
+    (sj, ij, jj, btj), _ = run_both(40, 23, 5, True, True, False, seed=6)
+    args = [torch.from_numpy(x.copy()) for x in (btj, ij, jj, sj)]
+    monkeypatch.setattr(TV.backtrace_walk_packed8, "launches", 0)
+    got = TV.backtrace_walk_packed8(*args, 64)
+    assert TV.backtrace_walk_packed8.launches == 0
+    assert torch.equal(got, TV.backtrace_walk_packed8_plain(*args, 64))
 
 
 @pytest.mark.parametrize("P", [1, 3])
