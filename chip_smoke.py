@@ -291,6 +291,28 @@ def wave_instantiations(usage: dict) -> dict:
     return dict(sorted(out.items()))
 
 
+def realign_instantiations(usage: dict) -> dict:
+    """The realign kernels' entries of :func:`ptxas_usage`: R1/R2 as
+    fb_forward_kernel<C,SS> / fb_backward_kernel<C,SS> (C = 1-8 columns
+    a thread; SS 0 none, 1 dense, 2 table) and fb_forward_wide<SS> /
+    fb_backward_wide<SS>, R3 mac_dp_kernel, R4 mac_walk_kernel."""
+    import re
+
+    out = {}
+    for name, u in usage.items():
+        m = re.search(r"(fb_forward_kernel|fb_backward_kernel)ILi(\d)ELi(\d)E",
+                      name)
+        if m:
+            out["%s<%s,%s>" % m.groups()] = u
+        m = re.search(r"(fb_forward_wide|fb_backward_wide)ILi(\d)E", name)
+        if m:
+            out["%s<%s>" % m.groups()] = u
+        for k in ("mac_dp_kernel", "mac_walk_kernel"):
+            if k in name:
+                out[k] = u
+    return dict(sorted(out.items()))
+
+
 def bits_equal(a, b) -> bool:
     import torch
 
@@ -812,16 +834,62 @@ B_RE, LQ_RE, LT_RE = 256, 300, 384
 
 def realign_edge_shapes():
     """Edges of R1-R4: (tag, Lq, Lt_pad, B, exclusion bands, SS, local,
-    extras); extras "pad" makes the last lane a padding lane (no
-    template, every cell but column 0 off, as a chunk is padded),
-    "empty" closes every row of lane 1 below row 1 (its MAC cell lies
-    in row 1, which the walk's pre-masking stops: an empty walk)."""
+    extras); SS False, True (seeded dense factors) or an SS table kind
+    of :func:`realign_inputs` ("m1", "m2", "m3": every lane of that
+    mode; "mix": modes 1, 0, 2, 3 in turn); extras "pad" makes the last
+    lane a padding lane (no template, every cell but column 0 off, as a
+    chunk is padded), "empty" closes every row of lane 1 below row 1
+    (its MAC cell lies in row 1, which the walk's pre-masking stops: an
+    empty walk).  R1/R2 keep rows of up to 8 columns a thread in
+    registers (the profile of more than 4 in shared memory); 9 columns
+    take the wide kernels' shared memory, 47 their global scratch."""
     return [("Wj < T", 12, 20, 3, 0, False, True, ""),
             ("Wj % T != 0, padded lane", 9, 140, 3, 2, True, True, "pad"),
             ("Lq = 1", 1, 30, 2, 0, False, True, ""),
             ("global, ragged t_L", 15, 40, 4, 3, True, False, "pad"),
             ("3 columns a thread, global", 10, 300, 2, 1, False, False, ""),
-            ("empty walk", 7, 128, 3, 0, True, True, "empty,pad")]
+            ("empty walk", 7, 128, 3, 0, True, True, "empty,pad"),
+            ("SS and non-SS lanes", 20, 200, 5, 1, "mix", True, "pad"),
+            ("SS mode 1, global", 17, 90, 3, 0, "m1", False, ""),
+            ("SS mode 2", 13, 130, 3, 2, "m2", True, "pad"),
+            ("SS mode 3, 4 columns a thread", 11, 500, 2, 1, "m3", True,
+             ""),
+            ("5 columns a thread, SS table", 8, 600, 3, 1, "mix", True,
+             "pad"),
+            ("9 columns a thread, global", 7, 1100, 2, 1, "m3", False,
+             "pad"),
+            ("global scratch row, SS table", 6, 5888, 2, 0, "m2", False,
+             "pad")]
+
+
+# the table kinds' SS modes a lane, in turn
+SS_KINDS = {"m1": (1,), "m2": (2,), "m3": (3,), "mix": (1, 0, 2, 3)}
+
+
+def realign_ss_table(rng, Lq, t_L, kind, Wj):
+    """Seeded SS states of a query and of each lane's template, seeded
+    S37/S73/S33 matrices, and the realign path's table of them
+    (``PosteriorDecoder.ss_table``): (lut, roff, coff) numpy arrays.
+    Lanes of t_L 0 (padding) are of mode 0."""
+    from types import SimpleNamespace
+
+    from hhsuite_tpu_torch.constants import MAXCF, NDSSP, NSSPRED
+    from hhsuite_tpu_torch.search.posterior import PosteriorDecoder
+
+    def states(n):
+        return SimpleNamespace(
+            L=n, ss_pred=rng.integers(0, NSSPRED, n + 1).astype(np.int8),
+            ss_conf=rng.integers(0, MAXCF, n + 1).astype(np.int8),
+            ss_dssp=rng.integers(0, NDSSP, n + 1).astype(np.int8))
+
+    S = {k: rng.uniform(-1.5, 1.5, sh).astype(np.float32) for k, sh in (
+        ("S73", (NDSSP, NSSPRED, MAXCF)), ("S37", (NSSPRED, MAXCF, NDSSP)),
+        ("S33", (NSSPRED, MAXCF, NSSPRED, MAXCF)))}
+    dec = PosteriorDecoder(True, 0.11, **S)
+    modes = SS_KINDS[kind]
+    lanes = [(states(int(L)), modes[b % len(modes)] if L > 0 else 0)
+             for b, L in enumerate(t_L)]
+    return dec.ss_table(states(Lq), lanes, len(t_L), Wj)
 
 
 def realign_inputs(Lq, Lt_pad, B, P, ss, seed, device, extras=""):
@@ -831,12 +899,15 @@ def realign_inputs(Lq, Lt_pad, B, P, ss, seed, device, extras=""):
     past them); the cell-off corridor built by ``realign_mask_device``
     from RealignMaskSpec-style intervals of a seeded Viterbi path (the
     +-40 band, its rectangle and the min-overlap corner) and of P seeded
-    exclusion paths (+-2 bands); with ``ss`` dense SS factors and the
-    boundary factors.  Returns a dict of tensors on ``device`` and
-    kmax."""
+    exclusion paths (+-2 bands); with ``ss`` the boundary SS factors and
+    the SS factors: seeded dense ones (``ss`` True), or a table kind of
+    :data:`SS_KINDS`, as ``ss_table`` (:func:`realign_ss_table`) and
+    ``ss_f`` its dense expansion.  Returns a dict of tensors on
+    ``device`` and kmax."""
     import torch
 
-    from hhsuite_tpu_torch.ops.posterior_batch import realign_mask_device
+    from hhsuite_tpu_torch.ops.posterior_batch import (realign_mask_device,
+                                                       ss_expand)
     from hhsuite_tpu_torch.ops.viterbi import band_intervals
 
     rng = np.random.default_rng(seed)
@@ -909,10 +980,16 @@ def realign_inputs(Lq, Lt_pad, B, P, ss, seed, device, extras=""):
     if "empty" in extras:
         co[1, 2:] = True
     out = dict(qp=dev(qp), qtr=dev(qtr), tp=dev(tp), ttr=dev(ttr), co=co,
-               t_L=dev(t_L), ss_f=None, ss0=None, kmax=Lq + Lt_pad + 2)
-    if ss:
+               t_L=dev(t_L), ss_f=None, ss0=None, ss_table=None,
+               kmax=Lq + Lt_pad + 2)
+    if ss in SS_KINDS:
+        out["ss_table"] = tuple(dev(a) for a in realign_ss_table(
+            rng, Lq, t_L, ss, Wj))
+        out["ss_f"] = ss_expand(*out["ss_table"])
+    elif ss:
         out["ss_f"] = dev(np.exp2(rng.uniform(-1, 1, (B, Lq + 1, Wj))
                                   ).astype(f32))
+    if ss:
         out["ss0"] = dev(np.exp2(rng.uniform(-1, 1, B)).astype(f32))
     return out
 
@@ -933,7 +1010,9 @@ def finite_err(a, b) -> float:
 def realign_check(x, local, tag):
     """R1-R4 on the card against their plain versions on the same inputs
     (R1-R3 bit for bit, R4 byte for byte), each fed the plain version's
-    outputs of the pass before.  Returns the plain outputs (fwd, scales,
+    outputs of the pass before; with an SS table, R1 and R2 in both SS
+    forms (the table and its dense expansion), each bit-identical to the
+    plain version.  Returns the plain outputs (fwd, scales,
     pfwd, p_mm, b_mac, i2, j2, score, payload) and each kernel's measured
     difference from its plain version: R1 and R2 :func:`finite_err` over
     their f32 outputs, R3 the count of b_mac, i2 and j2 entries that
@@ -944,23 +1023,32 @@ def realign_check(x, local, tag):
 
     cs = float(np.exp2(np.float32(REALIGN_SHIFT)))
     args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
-    err = {}
+    err = {"R1": 0.0, "R2": 0.0}
+    # the SS forms: the dense factors, and the table where there is one
+    forms = [("dense", dict(ss_f=x["ss_f"]))]
+    if x.get("ss_table") is not None:
+        forms.append(("table", dict(ss_table=x["ss_table"])))
     want = PB.fb_forward_plain(*args, x["ss_f"], x["ss0"], local, x["t_L"])
-    got = PB.fb_forward(*args, x["ss_f"], x["ss0"], local, x["t_L"])
-    err["R1"] = max(finite_err(a, b) for a, b in zip(got, want))
-    for nm, a, b in zip(("fwd", "scales", "Pforward"), got, want):
-        if not bits_equal(a, b):
-            raise AssertionError(f"R1 {tag}: {nm} of kernel != plain "
-                                 f"(max |err| {err['R1']})")
+    for form, ss in forms:
+        got = PB.fb_forward(*args, ss0=x["ss0"], local=local, t_L=x["t_L"],
+                            **ss)
+        e = max(finite_err(a, b) for a, b in zip(got, want))
+        err["R1"] = max(err["R1"], e)
+        for nm, a, b in zip(("fwd", "scales", "Pforward"), got, want):
+            if not bits_equal(a, b):
+                raise AssertionError(f"R1 {tag} ({form} SS): {nm} of "
+                                     f"kernel != plain (max |err| {e})")
     fwd, scales, pfwd = want
     pmm = PB.fb_backward_plain(*args, fwd, scales, pfwd, x["ss_f"], local,
                                x["t_L"])
-    got = PB.fb_backward(*args, fwd, scales, pfwd, x["ss_f"], local,
-                         x["t_L"])
-    err["R2"] = finite_err(got, pmm)
-    if not bits_equal(got, pmm):
-        raise AssertionError(f"R2 {tag}: p_mm of kernel != plain "
-                             f"(max |err| {err['R2']})")
+    for form, ss in forms:
+        got = PB.fb_backward(*args, fwd, scales, pfwd, local=local,
+                             t_L=x["t_L"], **ss)
+        e = finite_err(got, pmm)
+        err["R2"] = max(err["R2"], e)
+        if not bits_equal(got, pmm):
+            raise AssertionError(f"R2 {tag} ({form} SS): p_mm of kernel != "
+                                 f"plain (max |err| {e})")
     want = PB.mac_dp_plain(pmm, x["co"], REALIGN_MACT, local, x["t_L"])
     got = PB.mac_dp(pmm, x["co"], REALIGN_MACT, local, x["t_L"])
     err["R3"] = float(sum(int((a != b).sum()) for a, b in zip(got, want)))
@@ -1033,9 +1121,11 @@ def phase1_realign(dev, usage):
     """R1-R4 against their plain versions on the card at the realign
     path's chunk (B = 256 hits, Lq = 300, Lt_pad = 384; corridors from
     the interval form of seeded paths with 3 exclusion bands; a padding
-    lane), SS off and on, local and global; then at
+    lane), SS off and on (an SS table of mixed modes and non-SS lanes,
+    R1/R2 in both SS forms), local and global; then at
     :func:`realign_edge_shapes`.  Each timed with CUDA events beside its
-    bound and its plain version's time; its ``max_abs_err`` is the largest
+    bound and its plain version's time (R1/R2 with SS in the dense and
+    the table form too); its ``max_abs_err`` is the largest
     difference from its plain version that :func:`realign_check` measured
     over all of these cases.  Returns the records (without launch
     counts)."""
@@ -1053,12 +1143,12 @@ def phase1_realign(dev, usage):
             errs[k] = max(errs[k], v)
         return out
 
-    for ss in (False, True):
+    for ss in (False, "mix"):
         for local in (True, False):
             tag = (f"SS {'on' if ss else 'off'}, "
                    f"{'local' if local else 'global'}")
-            x = realign_inputs(LQ_RE, LT_RE, B_RE, 3, ss, SEED + 40 + ss,
-                               dev, extras="pad")
+            x = realign_inputs(LQ_RE, LT_RE, B_RE, 3, ss,
+                               SEED + 40 + bool(ss), dev, extras="pad")
             out = check(x, local, tag)
             fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload = out
             n_steps = int(PB.mac_walk_unpack8(payload.cpu().numpy(),
@@ -1104,18 +1194,26 @@ def phase1_realign(dev, usage):
                         + ("byte-identical" if key == "R4"
                            else "bit-identical"))
             else:
-                # the other forms: kernel time only
+                # the other forms: kernel time only (R1/R2 with SS in
+                # both SS forms)
                 times = {}
                 args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
-                times["R1"] = cuda_ms(lambda: PB.fb_forward(
-                    *args, x["ss_f"], x["ss0"], local, x["t_L"]), 2)
-                times["R2"] = cuda_ms(lambda: PB.fb_backward(
-                    *args, fwd, scales, pfwd, x["ss_f"], local, x["t_L"]), 2)
+                forms = [("", dict(ss_f=x["ss_f"]))]
+                if ss:
+                    forms = [(" dense", dict(ss_f=x["ss_f"])),
+                             (" table", dict(ss_table=x["ss_table"]))]
+                for form, fss in forms:
+                    times["R1" + form] = cuda_ms(lambda: PB.fb_forward(
+                        *args, ss0=x["ss0"], local=local, t_L=x["t_L"],
+                        **fss), 2)
+                    times["R2" + form] = cuda_ms(lambda: PB.fb_backward(
+                        *args, fwd, scales, pfwd, local=local, t_L=x["t_L"],
+                        **fss), 2)
                 times["R3"] = cuda_ms(lambda: PB.mac_dp(
                     pmm, x["co"], REALIGN_MACT, local, x["t_L"]), 2)
                 for key, ms in times.items():
-                    recs.setdefault(key, {}).setdefault("other_ms", {})[
-                        tag] = ms
+                    recs.setdefault(key[:2], {}).setdefault("other_ms", {})[
+                        tag + key[2:]] = ms
                 log(f"phase1 R1-R3 ({tag}): " + ", ".join(
                     f"{k} {v:.3f} ms" for k, v in times.items())
                     + "; bit-identical, R4 byte-identical")
@@ -1128,6 +1226,22 @@ def phase1_realign(dev, usage):
                 f"{float(score[torch.isfinite(score)].max()):.2f}")
             del x, out, fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload
             torch.cuda.empty_cache()
+    # rows of 5 columns a thread (Lt_pad 512: the 8192 query's longest
+    # chunk), R1/R2 with the profile in shared memory
+    tag = "Lt_pad 512, SS off, local"
+    x = realign_inputs(LQ_RE, 512, B_RE, 3, False, SEED + 50, dev,
+                       extras="pad")
+    fwd, scales, pfwd = check(x, True, tag)[:3]
+    args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
+    times = {"R1": cuda_ms(lambda: PB.fb_forward(
+        *args, local=True, t_L=x["t_L"]), 3),
+             "R2": cuda_ms(lambda: PB.fb_backward(
+        *args, fwd, scales, pfwd, local=True, t_L=x["t_L"]), 3)}
+    for key, ms in times.items():
+        recs[key]["other_ms"][tag] = ms
+    log(f"phase1 R1-R2 ({tag}): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()) + "; bit-identical")
+    del x, fwd, scales, pfwd
     t0 = time.perf_counter()
     for k, (tag, Lq, Lt_pad, B, P, ss, local, extras) in enumerate(
             realign_edge_shapes()):
@@ -2064,10 +2178,16 @@ def phase0_builds() -> dict:
         raise AssertionError(f"phase0: ptxas reported {n_bt} vit_bt_kernel "
                              f"and {n_score} vit_score_kernel "
                              "instantiations, not 8 and 12")
-    for name, u in ptxas_usage(infos["posterior"].log).items():
-        for kname, *_rest in REALIGN_KERNELS.values():
-            if kname in name:
-                usage[kname] = u
+    post = realign_instantiations(ptxas_usage(infos["posterior"].log))
+    for key, (regs, st, ld) in post.items():
+        log(f"phase0 {key}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    if len(post) != 56:
+        raise AssertionError(f"phase0: ptxas reported {len(post)} realign "
+                             "kernel instantiations, not 56")
+    # the path's: R1/R2 at 4 columns a thread without SS
+    for kname, *_rest in REALIGN_KERNELS.values():
+        usage[kname] = post.get(kname + "<4,0>", post.get(kname))
     for name, u in ptxas_usage(infos["viterbi"].log).items():
         if "bt_walk_kernel" in name:
             usage["bt_walk_kernel"] = u

@@ -3,10 +3,11 @@
 // Replace the JAX package's device realign decoder, which is plain jnp
 // compiled into one dispatch (hhsuite_tpu/ops/posterior_batch.py):
 //   R1  fb_mac_batch's Forward rows (:139-224)
-//       -> fb_forward_kernel / hh_post_forward
+//       -> fb_forward_kernel<C, SS> (fb_forward_wide<SS>) / hh_post_forward
 //   R2  fb_mac_batch's Backward rows (:226-279), fused into the
 //       posterior p_mm = fwd * bwd / Pforward
-//       -> fb_backward_kernel / hh_post_backward
+//       -> fb_backward_kernel<C, SS> (fb_backward_wide<SS>) /
+//          hh_post_backward
 //   R3  fb_mac_batch's MAC rows, backtrace codes and argmax (:281-351)
 //       -> mac_dp_kernel / hh_post_mac
 //   R4  mac_walk (:470) + mac_walk_packed8 (:418): the MAC backtrace
@@ -22,41 +23,53 @@
 // kernels and plain versions are bit-identical; exp2(shift) and the
 // score's log2 are computed on the host.
 //
-// Design: one CTA of T = 128 threads per hit, query rows in order inside
-// the kernel.  A row of Wj = Lt + 1 cells is cut into T segments of
-// c = ceil(Wj / T) contiguous columns (padded to W = T * c with cells
-// that are off and hold zeros).  The row arrays of a hit (R1: MM, MI,
-// DG, IM, GD and the two chains' segment products; R2: the same with
-// the match term; R3: S, the decay sums, the partial max and code) live
-// in dynamic shared memory, or, for rows too wide for it, in a global
-// scratch of the same layout (the wrapper picks).  A cell's left (R1,
-// R3) or right (R2) neighbour is read across the segment edge through
-// those arrays; values a row overwrites in place are taken into
-// registers before a barrier.  A same-row chain (R1/R2's GD and IM
-// affine recurrences y[j] = u[j] + a[j] * y[j -+ 1], R3's max-plus
-// S[j] = max(m[j], S[j-1] - d[j])) runs as a sequential pass inside the
-// segment, a Kogge-Stone scan over the T segment aggregates in shared
-// memory (ping-pong buffers, one barrier a step) with the JAX
+// The association: one hit to a CTA of T = 128 threads, query rows in
+// order.  A row of Wj = Lt + 1 cells is cut into T segments of c =
+// ceil(Wj / T) contiguous columns (padded to W = T * c with cells that
+// are off and hold zeros).  A same-row chain (R1/R2's GD and IM affine
+// recurrences y[j] = u[j] + a[j] * y[j -+ 1], R3's max-plus S[j] =
+// max(m[j], S[j-1] - d[j])) runs as a sequential pass inside the
+// segment, a Kogge-Stone scan over the T segment aggregates with the JAX
 // package's combine rules (_lin_scan :43, _maxplus_scan :58), and the
 // carry applied back into the segment.  Row sums and maxima: sequential
-// in the segment, then a pairwise tree over T.  R3 keeps each thread's
-// best cell (strict ">" in row-major order) and reduces them by (score
-// desc, flat index asc).  R4 runs one thread per hit over at most kmax
-// steps, reading b_mac with the pre-masking (column 1 and row 1 STOP)
-// applied on the fly, and writes the payload bytes directly.
+// in the segment, then a pairwise tree over T.
 //
-// What bounds them on the card.  R1/R2 do 39 f32 operations a cell for
-// the profile dot and ~45 for the recurrences and chains (R2 computes
-// the dot of the neighbour column), R3 13; every one is a separate
-// instruction (no FMA; chip_smoke.py:OPS_R counts them).  B = 256 hits of Lq = 300 rows and Wj = 385
-// columns are ~30 M cells a pass, ~2 G instructions against 33.5e12/s:
-// tens of microseconds.  The bytes are the (B, Lq+1, Wj) matrices (the
-// cell-off mask, fwd, p_mm, b_mac, the optional SS factors): ~0.1-0.3 GB
-// a pass against 3.35 TB/s.  The kernels are far from either: each row
-// costs ~20 block barriers and a serial segment pass, so the time is the
-// latency of Lq rows of barrier-separated steps.  Making them fast
-// (warp-level scans, several rows in flight, the dot shared between
-// passes) is later work.
+// R1/R2 for rows of c <= CROW = 8 columns a thread (Wj <= 1024, the
+// search's templates): fb_forward_kernel / fb_backward_kernel<C, SS>.
+// What bounds them: a row of B = 256 hits at Wj = 385 is ~0.1 M cells,
+// ~84 f32 operations each (no FMA), against 33.5e12/s: ~0.25 us; the
+// row's work is a chain of dependent steps, so its latency sets the
+// pace (the block-scan design below: ~10.9 us a row on an H100 80GB
+// HBM3 at a 700 W power limit).
+// What the design does about it:
+//   - the row state (MM, DG, MI, GD, IM; R2 the next row's), the
+//     template's transition columns of the thread's c columns, its
+//     profile columns (up to CREG = 4 columns; beyond, in the thread's
+//     own shared-memory slots) and each row's inputs (query row,
+//     cell-off bytes, SS factors, R2's fwd row) live in registers; the
+//     next row's inputs are loaded, and its profile dot computed, during
+//     this row's scans;
+//   - a row's neighbours meet in shared-memory slots of two parities,
+//     and every warp scans the T chain aggregates (and R1's row sum and
+//     max) itself, four elements a lane with shuffles, in the
+//     association of the block-wide scan: 2 block barriers a row (the
+//     block-scan design: 20 in R1, 11 in R2);
+//   - the SS factors come as a table (SS_TABLE: the factors of the three
+//     modes, ~10 KB, staged in shared memory; a row offset a row and a
+//     column offset a column, -1 for a factor of 1) or as the dense
+//     (B, Lq+1, Wj) matrix (SS_DENSE), the JAX layout.
+// Wider rows keep the block-scan design (fb_forward_wide /
+// fb_backward_wide: the row arrays in dynamic shared memory, or, too
+// wide for it, in a global scratch of the same layout; the row's
+// operands and the SS table read from global memory; 20 barriers a
+// row).
+//
+// R3 (mac_dp_kernel) keeps the row arrays as the wide kernels do; it
+// keeps each thread's best cell (strict ">" in row-major order) and
+// reduces them by (score desc, flat index asc).  R4 runs one thread per
+// hit over at most kmax steps, reading b_mac with the pre-masking
+// (column 1 and row 1 STOP) applied on the fly, and writes the payload
+// bytes directly.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -196,15 +209,793 @@ __device__ __forceinline__ float* lane_arrays(float* smem, float* scratch,
   return scratch ? scratch + (long long)blockIdx.x * lane_floats : smem;
 }
 
+// ------------------------------------------------------ SS factors --
+enum { SS_NONE = 0, SS_DENSE = 1, SS_TABLE = 2 };
+// the table's entries: 1 + |S37| + |S73| + |S33| = 1 + 352 + 352 + 1936
+constexpr int SS_LUT_MAX = 4096;
+
+// A hit's SS factor at (i, j) in the wide kernels: the dense (Lq+1, Wj)
+// plane or the table (entry 0 where the column offset is negative); 0
+// in the padding columns, as the plain versions pad.
+template <int SS>
+struct SsAt {
+  const float* dense;
+  const float* lut;
+  const int* roff;
+  const int* coff;
+  int Wj;
+  __device__ __forceinline__ float at(int i, int j) const {
+    if (j >= Wj) return 0.0f;
+    if constexpr (SS == SS_DENSE) {
+      return dense[(long long)i * Wj + j];
+    } else {
+      const int cj = coff[j];
+      return lut[cj < 0 ? 0 : roff[i] + cj];
+    }
+  }
+};
+
+template <int SS>
+__device__ __forceinline__ SsAt<SS> ss_at(const float* ssf, const float* lut,
+                                          const int* roff, const int* coff,
+                                          int b, int Lq, int Wj) {
+  const long long plane = (long long)(Lq + 1) * Wj;
+  return SsAt<SS>{ssf ? ssf + b * plane : nullptr, lut,
+                  roff ? roff + (long long)b * (Lq + 1) : nullptr,
+                  coff ? coff + (long long)b * Wj : nullptr, Wj};
+}
+
+// --------------------------------------- warp-redundant row scans --
+// Every warp scans a row's T segment aggregates itself, lane l holding
+// elements l + 32 m (m < NE): the Kogge-Stone steps d < 32 take their
+// partner by shuffle, d = 32, 64 from the lane's own registers.  Each
+// element goes through the same combines in the same order as in
+// ks_lin2 / tree_sum_max, so the results are bit-identical, with no
+// block barrier.
+constexpr int CREG = 4;   // template profile columns in registers
+constexpr int CROW = 8;   // row state in registers (Wj <= 1024)
+constexpr int NE = T / 32;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(T == 128, "the warp scans hold four elements a lane");
+
+__device__ __forceinline__ float pick(const float (&v)[NE], int m) {
+  return m <= 0 ? v[0] : m == 1 ? v[1] : m == 2 ? v[2] : v[3];
+}
+
+// Element e (0 <= e < T, within one warp of this thread's own) of an
+// array held as above: both registers it may be in are shuffled from
+// lane e % 32, the reader picks.
+template <bool REV>
+__device__ __forceinline__ float elem_near(const float (&v)[NE], int e) {
+  const int w = threadIdx.x >> 5;
+  const float own = __shfl_sync(FULL, pick(v, w), e & 31, 32);
+  const float far =
+      __shfl_sync(FULL, pick(v, REV ? w + 1 : w - 1), e & 31, 32);
+  return (e >> 5) == w ? own : far;
+}
+
+// ks_lin2's inclusive scan of two affine chains, (A, U) pairs combined
+// as (A_x * A_y, U_y + A_y * U_x) with x the earlier element (REV: the
+// one to the right).
+template <bool REV>
+__device__ __forceinline__ void ks_lin2_warp(float (&A0)[NE], float (&U0)[NE],
+                                             float (&A1)[NE],
+                                             float (&U1)[NE]) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int src = REV ? (l + d) & 31 : (l - d) & 31;
+    const bool wrap = REV ? l + d >= 32 : l < d;
+    float rA0[NE], rU0[NE], rA1[NE], rU1[NE];
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+      rA0[m] = __shfl_sync(FULL, A0[m], src, 32);
+      rU0[m] = __shfl_sync(FULL, U0[m], src, 32);
+      rA1[m] = __shfl_sync(FULL, A1[m], src, 32);
+      rU1[m] = __shfl_sync(FULL, U1[m], src, 32);
+    }
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+      // the partner: register m of lane src, or across the warp's edge
+      // register m - 1 (REV: m + 1); none past the array's end
+      const int mo = REV ? m + 1 : m - 1;
+      const bool in = mo >= 0 && mo < NE;
+      const int mc = in ? mo : m;
+      const bool has = !wrap || in;
+      const float xA0 = wrap ? rA0[mc] : rA0[m];
+      const float xU0 = wrap ? rU0[mc] : rU0[m];
+      const float xA1 = wrap ? rA1[mc] : rA1[m];
+      const float xU1 = wrap ? rU1[mc] : rU1[m];
+      if (has) {
+        U0[m] = U0[m] + A0[m] * xU0;
+        A0[m] = xA0 * A0[m];
+        U1[m] = U1[m] + A1[m] * xU1;
+        A1[m] = xA1 * A1[m];
+      }
+    }
+  }
+#pragma unroll
+  for (int dm = 1; dm < NE; dm <<= 1) {
+    if (REV) {
+#pragma unroll
+      for (int m = 0; m + dm < NE; ++m) {
+        U0[m] = U0[m] + A0[m] * U0[m + dm];
+        A0[m] = A0[m + dm] * A0[m];
+        U1[m] = U1[m] + A1[m] * U1[m + dm];
+        A1[m] = A1[m + dm] * A1[m];
+      }
+    } else {
+#pragma unroll
+      for (int m = NE - 1; m >= dm; --m) {
+        U0[m] = U0[m] + A0[m] * U0[m - dm];
+        A0[m] = A0[m - dm] * A0[m];
+        U1[m] = U1[m] + A1[m] * U1[m - dm];
+        A1[m] = A1[m - dm] * A1[m];
+      }
+    }
+  }
+}
+
+// tree_sum_max's pairwise trees: h = 64, 32 inside the lane, 16..1 by
+// shuffle; the results broadcast from lane 0.
+__device__ __forceinline__ void tree_warp(float (&S)[NE], float (&M)[NE],
+                                          float& sum, float& m) {
+  S[0] = S[0] + S[2];
+  M[0] = mx(M[0], M[2]);
+  S[1] = S[1] + S[3];
+  M[1] = mx(M[1], M[3]);
+  S[0] = S[0] + S[1];
+  M[0] = mx(M[0], M[1]);
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) {
+    const float so = __shfl_down_sync(FULL, S[0], h, 32);
+    const float mo = __shfl_down_sync(FULL, M[0], h, 32);
+    S[0] = S[0] + so;
+    M[0] = mx(M[0], mo);
+  }
+  sum = __shfl_sync(FULL, S[0], 0, 32);
+  m = __shfl_sync(FULL, M[0], 0, 32);
+}
+
+// A row's scans from its published aggregates A = (a0, u0, a1, u1) of
+// the two chains (and, with SUM, the segment sums and maxima R).  Gives
+// this thread's carries (the inclusive value of the segment before it:
+// t - 1, REV t + 1; 0 at the end), the neighbour's final chain values
+// in its column next to this thread's (its u + a * its carry), and the
+// row's sum and max.
+template <bool REV, bool SUM>
+__device__ __forceinline__ void scan_row(const float4* A, const float2* R,
+                                         float& cg, float& ci, float& ng,
+                                         float& ni, float& sum, float& m) {
+  const int t = threadIdx.x, l = t & 31;
+  float A0[NE], U0[NE], A1[NE], U1[NE];
+#pragma unroll
+  for (int k = 0; k < NE; ++k) {
+    const float4 v = A[l + 32 * k];
+    A0[k] = v.x;
+    U0[k] = v.y;
+    A1[k] = v.z;
+    U1[k] = v.w;
+  }
+  if constexpr (SUM) {
+    float S[NE], M[NE];
+#pragma unroll
+    for (int k = 0; k < NE; ++k) {
+      const float2 r = R[l + 32 * k];
+      S[k] = r.x;
+      M[k] = r.y;
+    }
+    tree_warp(S, M, sum, m);
+  }
+  ks_lin2_warp<REV>(A0, U0, A1, U1);
+  const int e1 = REV ? t + 1 : t - 1, e2 = REV ? t + 2 : t - 2;
+  const bool h1 = e1 >= 0 && e1 < T, h2 = e2 >= 0 && e2 < T;
+  const int c1 = h1 ? e1 : t, c2 = h2 ? e2 : t;
+  const float g1 = elem_near<REV>(U0, c1), i1 = elem_near<REV>(U1, c1);
+  const float g2 = elem_near<REV>(U0, c2), i2 = elem_near<REV>(U1, c2);
+  cg = h1 ? g1 : 0.0f;
+  ci = h1 ? i1 : 0.0f;
+  const float4 nb = A[c1];
+  ng = h1 ? nb.y + nb.x * (h2 ? g2 : 0.0f) : 0.0f;
+  ni = h1 ? nb.w + nb.z * (h2 ? i2 : 0.0f) : 0.0f;
+}
+
+// A thread's C template profile columns (R1: its columns j, R2: j + 1):
+// in registers up to CREG columns; beyond, the thread's own slots of
+// shared memory at s[(k * 20 + a) * T] (s = base + threadIdx.x: lanes
+// on consecutive words), written and read by this thread alone.
+template <int C>
+struct ProfCols {
+  static constexpr bool REG = C <= CREG;
+  // shared floats the profile takes (0: registers)
+  static constexpr int SMEM = REG ? 0 : 20 * C * T;
+  float r[REG ? C : 1][20];
+  float* s;
+  __device__ __forceinline__ void load(const float* col, bool in, int k) {
+#pragma unroll
+    for (int u = 0; u < 5; ++u) {
+      const float4 v = in ? __ldg(reinterpret_cast<const float4*>(col) + u)
+                          : float4{0.0f, 0.0f, 0.0f, 0.0f};
+      const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (REG)
+          r[k][4 * u + e] = w[e];
+        else
+          s[(k * 20 + 4 * u + e) * T] = w[e];
+      }
+    }
+  }
+  __device__ __forceinline__ float at(int k, int a) const {
+    if constexpr (REG)
+      return r[k][a];
+    else
+      return s[(k * 20 + a) * T];
+  }
+  // the 20-term profile dot of column k, in dot20's order
+  __device__ __forceinline__ float dot(const float (&q)[20], int k) const {
+    float acc = q[0] * at(k, 0);
+#pragma unroll
+    for (int a = 1; a < 20; ++a) acc = acc + q[a] * at(k, a);
+    return acc;
+  }
+};
+
+__device__ __forceinline__ void load_qrow(const float* qp, int i,
+                                          float (&q)[20]) {
+  const float4* r = reinterpret_cast<const float4*>(qp) + 5LL * i;
+#pragma unroll
+  for (int u = 0; u < 5; ++u) {
+    const float4 v = __ldg(r + u);
+    q[4 * u] = v.x;
+    q[4 * u + 1] = v.y;
+    q[4 * u + 2] = v.z;
+    q[4 * u + 3] = v.w;
+  }
+}
+
+// okf of this thread's C columns in one row of cell-off bytes
+template <int C>
+__device__ __forceinline__ void load_ok(const uint8_t* co_row, int j0, int Wj,
+                                        float (&ok)[C]) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = j0 + k;
+    ok[k] = (j >= 1 && j < Wj && !__ldg(co_row + j)) ? 1.0f : 0.0f;
+  }
+}
+
+// A hit's SS factors of one row at C columns j0 + sh + k (0 past Wj):
+// a dense row, or table entries at the row's offset ro plus the
+// columns' (entry 0 for a negative column offset).
+template <int C, int SS>
+__device__ __forceinline__ void ss_row(const float* dense_row,
+                                       const float* lut, int ro,
+                                       const int (&cof)[C], int j0, int Wj,
+                                       float (&s)[C]) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = j0 + k;
+    if constexpr (SS == SS_DENSE)
+      s[k] = j < Wj ? __ldg(dense_row + j) : 0.0f;
+    else if constexpr (SS == SS_TABLE)
+      s[k] = j < Wj ? lut[cof[k] < 0 ? 0 : ro + cof[k]] : 0.0f;
+    else
+      s[k] = 1.0f;
+  }
+}
+
 // ------------------------------------------------------------------ R1 --
 // Forward rows.  fwd (B, Lq+1, Wj); scales (B, Lq+2): 1, 1, 1, then
-// scale[i+1] of rows i = 2..Lq; pfwd (B,) Pforward.
+// scale[i+1] of rows i = 2..Lq; pfwd (B,) Pforward.  C = c columns a
+// thread; the SS table (SS_TABLE) in the dynamic shared memory.
+template <int C, int SS>
 __global__ void __launch_bounds__(T) fb_forward_kernel(
     const float* __restrict__ qp, const float* __restrict__ qtr,
     const float* __restrict__ tp, const float* __restrict__ ttr,
     const uint8_t* __restrict__ co, const float* __restrict__ ssf,
-    const float* __restrict__ ss0, const int* __restrict__ tL, int Lq,
-    int Wj, int c, float cs, int local, float* scratch,
+    const float* __restrict__ lut, int n_lut, const int* __restrict__ roff,
+    const int* __restrict__ coff, const float* __restrict__ ss0,
+    const int* __restrict__ tL, int Lq, int Wj, float cs, int local,
+    float* __restrict__ fwd, float* __restrict__ scales,
+    float* __restrict__ pfwd_out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float4 sA[2][T];
+  __shared__ float2 sR[2][T];
+  __shared__ float sX[2][3][T];
+  __shared__ float sLc[2];
+  const int b = blockIdx.x, t = threadIdx.x, j0 = t * C;
+  const long long plane = (long long)(Lq + 1) * Wj;
+  const uint8_t* cob = co + b * plane;
+  float* fw = fwd + b * plane;
+  float* scb = scales + (long long)b * (Lq + 2);
+  const float s0 = ss0 ? ss0[b] : 1.0f;
+  // global mode: the hit's last column, where rows above Lq exit
+  const int lc = tL ? tL[b] : Wj - 1;
+  if (t < 3) scb[t] = 1.0f;
+  const float* ssb = SS == SS_DENSE ? ssf + b * plane : nullptr;
+  const int* rob = SS == SS_TABLE ? roff + (long long)b * (Lq + 1) : nullptr;
+  int cof[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    cof[k] = SS == SS_TABLE && j0 + k < Wj
+                 ? coff[(long long)b * Wj + j0 + k] : -1;
+  // dynamic shared memory: the profile columns (C > CREG), the SS table
+  float* slut = smem + ProfCols<C>::SMEM;
+  if constexpr (SS == SS_TABLE) {
+    for (int e = t; e < n_lut; e += T) slut[e] = lut[e];
+    __syncthreads();
+  }
+
+  // the template's columns: the profile of j, transitions of j - 1
+  // (M2M, D2M, I2M, M2D, D2D) and of j (M2I, I2I); zeros outside [0, Wj)
+  enum { L_MM, L_DM, L_IM, L_MD, L_DD };
+  ProfCols<C> prof;
+  prof.s = smem + t;
+  float tl[C][5], tj[C][2];
+  {
+    const float* tpb = tp + (long long)b * (Wj + 1) * 20;
+    const float* ttb = ttr + (long long)b * (Wj + 1) * 7;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      const bool in = j < Wj, inl = j >= 1 && j - 1 < Wj;
+      prof.load(tpb + j * 20, in, k);
+      const float* tr = ttb + (j - 1) * 7;
+      tl[k][L_MM] = inl ? __ldg(tr + M2M) : 0.0f;
+      tl[k][L_DM] = inl ? __ldg(tr + D2M) : 0.0f;
+      tl[k][L_IM] = inl ? __ldg(tr + I2M) : 0.0f;
+      tl[k][L_MD] = inl ? __ldg(tr + M2D) : 0.0f;
+      tl[k][L_DD] = inl ? __ldg(tr + D2D) : 0.0f;
+      tj[k][0] = in ? __ldg(ttb + j * 7 + M2I) : 0.0f;
+      tj[k][1] = in ? __ldg(ttb + j * 7 + I2I) : 0.0f;
+    }
+  }
+  float q[20], ok[C];
+  float MM[C], DG[C], MI[C], GD[C], IM[C];
+  float yG[C], pG[C], yI[C], pI[C];
+  float nbM, nbD, nbI, nbG, nbIm, cg, ci, rsum, rmax;
+
+  // row 0 and row 1: MM = PF * Cshift (no SS factor); the IM and GD
+  // prefix chains without the cell-off factor
+  load_qrow(qp, 1, q);
+  load_ok<C>(cob + Wj, j0, Wj, ok);
+  float lsum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = j0 + k;
+    const float mm = ((j < Wj ? prof.dot(q, k) : 0.0f) * cs) * ok[k];
+    MM[k] = mm;
+    MI[k] = 0.0f;
+    DG[k] = 0.0f;
+    if (j < Wj) {
+      fw[j] = 0.0f;
+      fw[Wj + j] = mm;
+    }
+    lsum = k ? lsum + mm : mm;
+    if (j == lc) sLc[1] = mm;
+  }
+  sX[1][0][t] = MM[C - 1];
+  sX[1][1][t] = 0.0f;
+  sX[1][2][t] = 0.0f;
+  __syncthreads();
+  nbM = t ? sX[1][0][t - 1] : 0.0f;
+  nbD = t ? sX[1][1][t - 1] : 0.0f;
+  nbI = t ? sX[1][2][t - 1] : 0.0f;
+  {
+    const float qmi = __ldg(qtr + 7 + M2I), qii = __ldg(qtr + 7 + I2I);
+    float yg = 0.0f, pg = 0.0f, yi = 0.0f, pi = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float mL = k ? MM[k - 1] : nbM;
+      const float tmm = tl[k][L_MM];
+      const float ui = (mL * qmi) * tmm, ai = qii * tmm;
+      const float ug = mL * tl[k][L_MD], ag = tl[k][L_DD];
+      yg = k ? ug + ag * yg : ug;
+      pg = k ? ag * pg : ag;
+      yi = k ? ui + ai * yi : ui;
+      pi = k ? ai * pi : ai;
+      yG[k] = yg;
+      pG[k] = pg;
+      yI[k] = yi;
+      pI[k] = pi;
+    }
+    sA[1][t] = float4{pg, yg, pi, yi};
+    sR[1][t] = float2{lsum, 0.0f};
+  }
+  __syncthreads();
+  scan_row<false, true>(sA[1], sR[1], cg, ci, nbG, nbIm, rsum, rmax);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    GD[k] = yG[k] + pG[k] * cg;
+    IM[k] = yI[k] + pI[k] * ci;
+  }
+  float pfwd = local ? 1.0f + rsum : sLc[1];
+  float pmin = local ? 1.0f : 0.0f;
+  float scale_i = 1.0f, scale_prod = 1.0f;
+
+  // row 2's inputs; each row loads the next one's during its scans
+  float pf1[C], ssv[C];
+  float qmm = 0.0f, qim = 0.0f, qdm = 0.0f, qmd = 0.0f, qdd = 0.0f;
+  float qmi = 0.0f, qii = 0.0f;
+  if (Lq >= 2) {
+    load_qrow(qp, 2, q);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      pf1[k] = (j0 + k < Wj ? prof.dot(q, k) : 0.0f) * cs;
+    const float* qa = qtr + 7;
+    qmm = __ldg(qa + M2M);
+    qim = __ldg(qa + I2M);
+    qdm = __ldg(qa + D2M);
+    qmd = __ldg(qa + M2D);
+    qdd = __ldg(qa + D2D);
+    qmi = __ldg(qa + 7 + M2I);
+    qii = __ldg(qa + 7 + I2I);
+    load_ok<C>(cob + 2LL * Wj, j0, Wj, ok);
+    ss_row<C, SS>(ssb ? ssb + 2LL * Wj : nullptr, slut, rob ? rob[2] : 0,
+                  cof, j0, Wj, ssv);
+  }
+
+  for (int i = 2; i <= Lq; ++i) {
+    const int par = i & 1;
+    scale_prod = scale_prod < FLUSH ? 0.0f : scale_prod * scale_i;
+    const float si = scale_i;
+    // the cells from the row above: the left neighbour's old MM, DG, MI
+    // for the first column, then this thread's own
+    float bm = nbM, bd = nbD, bi = nbI;
+    float lmax = 0.0f;
+    lsum = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      const float pfc = SS ? pf1[k] * ssv[k] : pf1[k];
+      const float tmmL = tl[k][L_MM];
+      const float gL = k ? GD[k - 1] : nbG;
+      const float iL = k ? IM[k - 1] : nbIm;
+      const float om = MM[k], od = DG[k], oi = MI[k];
+      float acc = pmin + (bm * qmm) * tmmL;
+      acc = acc + (gL * qmm) * tl[k][L_DM];
+      acc = acc + (iL * qim) * tmmL;
+      acc = acc + (bd * qdm) * tmmL;
+      acc = acc + (bi * qmm) * tl[k][L_IM];
+      float mm = (pfc * si) * acc;
+      if (j == 1) mm = (scale_prod * s0) * pf1[k];
+      mm = mm * ok[k];
+      const float dg = (si * ((om * qmd) + (od * qdd))) * ok[k];
+      const float mi =
+          (si * (((om * qmm) * tj[k][0]) + ((oi * qmm) * tj[k][1]))) * ok[k];
+      MM[k] = mm;
+      DG[k] = dg;
+      MI[k] = mi;
+      if (j < Wj) fw[(long long)i * Wj + j] = mm;
+      const float v = j == 1 ? 0.0f : mm;
+      lmax = k ? mx(lmax, v) : v;
+      lsum = k ? lsum + mm : mm;
+      if (j == lc) sLc[par] = mm;
+      bm = om;
+      bd = od;
+      bi = oi;
+    }
+    sX[par][0][t] = MM[C - 1];
+    sX[par][1][t] = DG[C - 1];
+    sX[par][2][t] = MI[C - 1];
+    __syncthreads();
+    nbM = t ? sX[par][0][t - 1] : 0.0f;
+    nbD = t ? sX[par][1][t - 1] : 0.0f;
+    nbI = t ? sX[par][2][t - 1] : 0.0f;
+    {
+      float yg = 0.0f, pg = 0.0f, yi = 0.0f, pi = 0.0f;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const float mL = k ? MM[k - 1] : nbM;
+        const float tmmL = tl[k][L_MM];
+        const float ug = (mL * tl[k][L_MD]) * ok[k];
+        const float ag = tl[k][L_DD] * ok[k];
+        const float ui = ((mL * qmi) * tmmL) * ok[k];
+        const float ai = (qii * tmmL) * ok[k];
+        yg = k ? ug + ag * yg : ug;
+        pg = k ? ag * pg : ag;
+        yi = k ? ui + ai * yi : ui;
+        pi = k ? ai * pi : ai;
+        yG[k] = yg;
+        pG[k] = pg;
+        yI[k] = yi;
+        pI[k] = pi;
+      }
+      sA[par][t] = float4{pg, yg, pi, yi};
+      sR[par][t] = float2{lsum, lmax};
+    }
+    __syncthreads();
+    // the next row's inputs (the last row reloads its own), and its
+    // profile dot, in the shadow of the scans
+    const int nx = i < Lq ? i + 1 : i;
+    load_qrow(qp, nx, q);
+    float nq[7];
+    {
+      const float* qa = qtr + (long long)(nx - 1) * 7;
+      nq[0] = __ldg(qa + M2M);
+      nq[1] = __ldg(qa + I2M);
+      nq[2] = __ldg(qa + D2M);
+      nq[3] = __ldg(qa + M2D);
+      nq[4] = __ldg(qa + D2D);
+      nq[5] = __ldg(qa + 7 + M2I);
+      nq[6] = __ldg(qa + 7 + I2I);
+    }
+    load_ok<C>(cob + (long long)nx * Wj, j0, Wj, ok);
+    if constexpr (SS == SS_DENSE)
+      ss_row<C, SS>(ssb + (long long)nx * Wj, slut, 0, cof, j0, Wj, ssv);
+    if constexpr (SS == SS_TABLE)
+      ss_row<C, SS>(nullptr, slut, __ldg(rob + nx), cof, j0, Wj, ssv);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      pf1[k] = (j0 + k < Wj ? prof.dot(q, k) : 0.0f) * cs;
+    scan_row<false, true>(sA[par], sR[par], cg, ci, nbG, nbIm, rsum, rmax);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      GD[k] = yG[k] + pG[k] * cg;
+      IM[k] = yI[k] + pI[k] * ci;
+    }
+    // Pmax over j >= 2 only (hhforwardalgorithm.cpp:139-143)
+    const float scale_next = 1.0f / (mx(rmax, 0.0f) + 1.0f);
+    if (local || i == Lq)
+      pfwd = (pfwd + rsum) * scale_next;
+    else
+      pfwd = (pfwd + sLc[par]) * scale_next;
+    pmin = pmin * scale_i;
+    pmin = pmin < FLUSH ? 0.0f : pmin;
+    if (t == 0) scb[i + 1] = scale_next;
+    scale_i = scale_next;
+    qmm = nq[0];
+    qim = nq[1];
+    qdm = nq[2];
+    qmd = nq[3];
+    qdd = nq[4];
+    qmi = nq[5];
+    qii = nq[6];
+  }
+  if (t == 0) pfwd_out[b] = pfwd;
+}
+
+// ------------------------------------------------------------------ R2 --
+// Backward rows from Lq up to 1, each row's posterior written as it is
+// done: pmm (B, Lq+1, Wj), p = fwd * bwd / Pforward on open cells, else
+// 0.  A thread holds the profile of its columns' right neighbours j + 1
+// (the match term's) and the transitions of its own.
+template <int C, int SS>
+__global__ void __launch_bounds__(T) fb_backward_kernel(
+    const float* __restrict__ qp, const float* __restrict__ qtr,
+    const float* __restrict__ tp, const float* __restrict__ ttr,
+    const uint8_t* __restrict__ co, const float* __restrict__ ssf,
+    const float* __restrict__ lut, int n_lut, const int* __restrict__ roff,
+    const int* __restrict__ coff, const float* __restrict__ fwd,
+    const float* __restrict__ scales, const float* __restrict__ pfwd,
+    const int* __restrict__ tL, int Lq, int Wj, float cs, int local,
+    float* __restrict__ pmm) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float4 sA[2][T];
+  __shared__ float sN[2][T];
+  const int b = blockIdx.x, t = threadIdx.x, j0 = t * C;
+  const int W = T * C;
+  const long long plane = (long long)(Lq + 1) * Wj;
+  const uint8_t* cob = co + b * plane;
+  const float* fw = fwd + b * plane;
+  float* pb = pmm + b * plane;
+  const float* scb = scales + (long long)b * (Lq + 2);
+  const float P = pfwd[b];
+  const float sLq1 = scb[Lq + 1];
+  // column Lt's reset: the hit's last column in global mode (local mode
+  // keeps the padded row's, as the JAX package; the columns past the
+  // hit's are off, so its own would give the same rows)
+  const int lc = tL && !local ? tL[b] : Wj - 1;
+  const float* ssb = SS == SS_DENSE ? ssf + b * plane : nullptr;
+  const int* rob = SS == SS_TABLE ? roff + (long long)b * (Lq + 1) : nullptr;
+  // the SS columns are the match term's, j + 1
+  int cof[C];
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    cof[k] = SS == SS_TABLE && j0 + k + 1 < Wj
+                 ? coff[(long long)b * Wj + j0 + k + 1] : -1;
+  // dynamic shared memory: the profile columns (C > CREG), the SS table
+  float* slut = smem + ProfCols<C>::SMEM;
+  if constexpr (SS == SS_TABLE) {
+    for (int e = t; e < n_lut; e += T) slut[e] = lut[e];
+    __syncthreads();
+  }
+
+  ProfCols<C> prof;
+  prof.s = smem + t;
+  float tt[C][7];
+  {
+    const float* tpb = tp + (long long)b * (Wj + 1) * 20;
+    const float* ttb = ttr + (long long)b * (Wj + 1) * 7;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      prof.load(tpb + (j + 1) * 20, j + 1 < Wj, k);
+#pragma unroll
+      for (int r = 0; r < 7; ++r)
+        tt[k][r] = j < Wj ? __ldg(ttb + j * 7 + r) : 0.0f;
+    }
+  }
+  float q[20], ok[C], fwv[C], pf1[C], ssv[C];
+  float NM[C], ND[C], NI[C], PM[C];
+  float yG[C], pG[C], yI[C], pI[C];
+  float cg, ci, gR0, iR0, unused0, unused1;
+
+  load_ok<C>(cob + (long long)Lq * Wj, j0, Wj, ok);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = j0 + k;
+    const float nm = sLq1 * ok[k];
+    NM[k] = nm;
+    ND[k] = 0.0f;
+    NI[k] = 0.0f;
+    if (j < Wj) {
+      pb[j] = 0.0f;
+      pb[(long long)Lq * Wj + j] =
+          ok[k] != 0.0f ? (__ldg(fw + (long long)Lq * Wj + j) * nm) / P
+                        : 0.0f;
+    }
+  }
+  sN[Lq & 1][t] = NM[0];
+  float scale_prod = sLq1;
+  float pmin = local ? sLq1 : 0.0f;
+  // row Lq - 1's inputs; each row loads the next one's during its scans
+  float si1 = 1.0f;
+  float qmm = 0.0f, qim = 0.0f, qii = 0.0f, qmi = 0.0f, qmd = 0.0f,
+        qdd = 0.0f, qdm = 0.0f;
+  if (Lq >= 2) {
+    const int i = Lq - 1;
+    si1 = __ldg(scb + i + 1);
+    load_qrow(qp, i + 1, q);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      pf1[k] = (j0 + k + 1 < Wj ? prof.dot(q, k) : 0.0f) * cs;
+    ss_row<C, SS>(ssb ? ssb + (long long)(i + 1) * Wj + 1 : nullptr, slut,
+                  rob ? rob[i + 1] : 0, cof, j0, Wj - 1, ssv);
+    const float* qa = qtr + (long long)i * 7;
+    qmm = __ldg(qa + M2M);
+    qim = __ldg(qa + I2M);
+    qii = __ldg(qa + I2I);
+    qmi = __ldg(qa + M2I);
+    qmd = __ldg(qa + M2D);
+    qdd = __ldg(qa + D2D);
+    qdm = __ldg(qa + D2M);
+    load_ok<C>(cob + (long long)i * Wj, j0, Wj, ok);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      fwv[k] = j0 + k < Wj ? __ldg(fw + (long long)i * Wj + j0 + k) : 0.0f;
+  }
+  __syncthreads();
+  float nbN = t < T - 1 ? sN[Lq & 1][t + 1] : 0.0f;
+
+  for (int i = Lq - 1; i >= 1; --i) {
+    const int par = i & 1;
+    scale_prod = scale_prod * si1;
+    scale_prod = scale_prod < FLUSH ? 0.0f : scale_prod;
+    pmin = pmin * si1;
+    pmin = pmin < FLUSH ? 0.0f : pmin;
+    // the match term from the row below, then the reverse chains
+    {
+      float yg = 0.0f, pg = 0.0f, yi = 0.0f, pi = 0.0f;
+#pragma unroll
+      for (int k = C - 1; k >= 0; --k) {
+        const int j = j0 + k;
+        float pm = 0.0f;
+        if (j + 1 < W) {
+          const float pfc = SS ? pf1[k] * ssv[k] : pf1[k];
+          pm = ((k < C - 1 ? NM[k + 1] : nbN) * pfc) * si1;
+        }
+        PM[k] = pm;
+        const float tmm = tt[k][M2M];
+        const float ug = ((pm * qmm) * tt[k][D2M]) * ok[k];
+        const float ag = tt[k][D2D] * ok[k];
+        const float ui = ((pm * qim) * tmm) * ok[k];
+        const float ai = (qii * tmm) * ok[k];
+        const bool first = k == C - 1;
+        yg = first ? ug : ug + ag * yg;
+        pg = first ? ag : ag * pg;
+        yi = first ? ui : ui + ai * yi;
+        pi = first ? ai : ai * pi;
+        yG[k] = yg;
+        pG[k] = pg;
+        yI[k] = yi;
+        pI[k] = pi;
+      }
+      sA[par][t] = float4{pg, yg, pi, yi};
+    }
+    __syncthreads();
+    // the next row's inputs (row 0's after row 1: unused), and its
+    // profile dot, in the shadow of the scan and the cells
+    const int n = i - 1;
+    const float nsi1 = __ldg(scb + n + 1);
+    load_qrow(qp, n + 1, q);
+    float nq[7], nok[C], nfw[C];
+    {
+      const float* qa = qtr + (long long)n * 7;
+      nq[0] = __ldg(qa + M2M);
+      nq[1] = __ldg(qa + I2M);
+      nq[2] = __ldg(qa + I2I);
+      nq[3] = __ldg(qa + M2I);
+      nq[4] = __ldg(qa + M2D);
+      nq[5] = __ldg(qa + D2D);
+      nq[6] = __ldg(qa + D2M);
+    }
+    load_ok<C>(cob + (long long)n * Wj, j0, Wj, nok);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      nfw[k] = j0 + k < Wj ? __ldg(fw + (long long)n * Wj + j0 + k) : 0.0f;
+    ss_row<C, SS>(ssb ? ssb + (long long)(n + 1) * Wj + 1 : nullptr, slut,
+                  rob ? __ldg(rob + n + 1) : 0, cof, j0, Wj - 1, ssv);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      pf1[k] = (j0 + k + 1 < Wj ? prof.dot(q, k) : 0.0f) * cs;
+    scan_row<true, false>(sA[par], nullptr, cg, ci, gR0, iR0, unused0,
+                          unused1);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      yG[k] = yG[k] + pG[k] * cg;
+      yI[k] = yI[k] + pI[k] * ci;
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      const float pm = PM[k];
+      const float gR = k < C - 1 ? yG[k + 1] : gR0;
+      const float iR = k < C - 1 ? yI[k + 1] : iR0;
+      const float nd = ND[k], ni = NI[k];
+      const float tmm = tt[k][M2M];
+      float acc = pmin + (pm * qmm) * tmm;
+      acc = acc + gR * tt[k][M2D];
+      acc = acc + (iR * qmi) * tmm;
+      acc = acc + (nd * qmd) * si1;
+      acc = acc + ((ni * qmm) * tt[k][M2I]) * si1;
+      float mm = acc * ok[k];
+      const float dg = (((pm * qdm) * tmm) + ((nd * qdd) * si1)) * ok[k];
+      const float mi = (((pm * qmm) * tt[k][I2M]) +
+                        (((ni * qmm) * tt[k][I2I]) * si1)) *
+                       ok[k];
+      // column Lt: the suffix starts here with the cumulative scale
+      if (j == lc) mm = scale_prod * ok[k];
+      NM[k] = mm;
+      ND[k] = dg;
+      NI[k] = mi;
+      if (k == 0) sN[par][t] = mm;
+      if (j < Wj)
+        pb[(long long)i * Wj + j] =
+            ok[k] != 0.0f ? (fwv[k] * mm) / P : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      ok[k] = nok[k];
+      fwv[k] = nfw[k];
+    }
+    si1 = nsi1;
+    qmm = nq[0];
+    qim = nq[1];
+    qii = nq[2];
+    qmi = nq[3];
+    qmd = nq[4];
+    qdd = nq[5];
+    qdm = nq[6];
+    __syncthreads();
+    nbN = t < T - 1 ? sN[par][t + 1] : 0.0f;
+  }
+}
+
+// ---------------------------------------------------- R1, wide rows --
+// R1 for rows of more than CROW columns a thread: the row arrays in
+// dynamic shared memory or the global scratch, the row's operands read
+// from global memory, 20 block barriers a row.
+template <int SS>
+__global__ void __launch_bounds__(T) fb_forward_wide(
+    const float* __restrict__ qp, const float* __restrict__ qtr,
+    const float* __restrict__ tp, const float* __restrict__ ttr,
+    const uint8_t* __restrict__ co, const float* __restrict__ ssf,
+    const float* __restrict__ lut, const int* __restrict__ roff,
+    const int* __restrict__ coff, const float* __restrict__ ss0,
+    const int* __restrict__ tL, int Lq, int Wj, int c, float cs, int local,
+    float* scratch,
     float* __restrict__ fwd, float* __restrict__ scales,
     float* __restrict__ pfwd_out) {
   extern __shared__ __align__(16) float smem[];
@@ -224,7 +1015,7 @@ __global__ void __launch_bounds__(T) fb_forward_kernel(
   const Tmpl tm{tp + (long long)b * (Wj + 1) * 20,
                 ttr + (long long)b * (Wj + 1) * 7, Wj};
   const uint8_t* cob = co + b * plane;
-  const float* ssb = ssf ? ssf + b * plane : nullptr;
+  const SsAt<SS> ss = ss_at<SS>(ssf, lut, roff, coff, b, Lq, Wj);
   float* fw = fwd + b * plane;
   float* scb = scales + (long long)b * (Lq + 2);
   const float s0 = ss0 ? ss0[b] : 1.0f;
@@ -300,8 +1091,7 @@ __global__ void __launch_bounds__(T) fb_forward_kernel(
       const int j = j0 + k;
       const float ok = okf_at(corow, j, Wj);
       const float pf1 = tm.pf(qrow, j) * cs;
-      const float pfc =
-          ssb ? pf1 * (j < Wj ? ssb[(long long)i * Wj + j] : 0.0f) : pf1;
+      const float pfc = SS ? pf1 * ss.at(i, j) : pf1;
       const float tmmL = tm.t(j - 1, M2M);
       const float gL = j > 0 ? GDa[j - 1] : 0.0f;
       const float iL = j > 0 ? IMa[j - 1] : 0.0f;
@@ -371,17 +1161,18 @@ __global__ void __launch_bounds__(T) fb_forward_kernel(
   if (t == 0) pfwd_out[b] = pfwd;
 }
 
-// ------------------------------------------------------------------ R2 --
-// Backward rows from Lq up to 1, each row's posterior written as it is
-// done: pmm (B, Lq+1, Wj), p = fwd * bwd / Pforward on open cells, else 0.
-__global__ void __launch_bounds__(T) fb_backward_kernel(
+// ---------------------------------------------------- R2, wide rows --
+// R2 for rows of more than CROW columns a thread, as fb_forward_wide.
+template <int SS>
+__global__ void __launch_bounds__(T) fb_backward_wide(
     const float* __restrict__ qp, const float* __restrict__ qtr,
     const float* __restrict__ tp, const float* __restrict__ ttr,
     const uint8_t* __restrict__ co, const float* __restrict__ ssf,
-    const float* __restrict__ fwd, const float* __restrict__ scales,
-    const float* __restrict__ pfwd, const int* __restrict__ tL, int Lq,
-    int Wj, int c, float cs, int local, float* scratch,
-    float* __restrict__ pmm) {
+    const float* __restrict__ lut, const int* __restrict__ roff,
+    const int* __restrict__ coff, const float* __restrict__ fwd,
+    const float* __restrict__ scales, const float* __restrict__ pfwd,
+    const int* __restrict__ tL, int Lq, int Wj, int c, float cs, int local,
+    float* scratch, float* __restrict__ pmm) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float ks[8 * T];
   const int b = blockIdx.x, t = threadIdx.x;
@@ -399,7 +1190,7 @@ __global__ void __launch_bounds__(T) fb_backward_kernel(
   const Tmpl tm{tp + (long long)b * (Wj + 1) * 20,
                 ttr + (long long)b * (Wj + 1) * 7, Wj};
   const uint8_t* cob = co + b * plane;
-  const float* ssb = ssf ? ssf + b * plane : nullptr;
+  const SsAt<SS> ss = ss_at<SS>(ssf, lut, roff, coff, b, Lq, Wj);
   const float* fw = fwd + b * plane;
   float* pb = pmm + b * plane;
   const float* scb = scales + (long long)b * (Lq + 2);
@@ -445,10 +1236,7 @@ __global__ void __launch_bounds__(T) fb_backward_kernel(
       float pm = 0.0f;
       if (j + 1 < W) {
         const float pf1 = tm.pf(qnext, j + 1) * cs;
-        const float pfc =
-            ssb ? pf1 * (j + 1 < Wj ? ssb[(long long)(i + 1) * Wj + j + 1]
-                                    : 0.0f)
-                : pf1;
+        const float pfc = SS ? pf1 * ss.at(i + 1, j + 1) : pf1;
         pm = (NM[j + 1] * pfc) * si1;
       }
       PM[j] = pm;
@@ -672,10 +1460,11 @@ __global__ void __launch_bounds__(T) mac_walk_kernel(
 
 long long lane_floats(int kind, int Wj) {
   if (Wj < 1) return -1;
-  const long long W = (long long)T * ((Wj + T - 1) / T);
+  const int c = (Wj + T - 1) / T;
+  const long long W = (long long)T * c;
   switch (kind) {
-    case 0: return 7 * W;
-    case 1: return 8 * W;
+    case 0: return c <= CROW ? 0 : 7 * W;
+    case 1: return c <= CROW ? 0 : 8 * W;
     case 2: return 3 * W + (W + 3) / 4;
     default: return -1;
   }
@@ -690,6 +1479,20 @@ cudaError_t prepare(K kernel, int smem_bytes) {
   return cudaSuccess;
 }
 
+// The arguments R1 and R2 share: shapes, the SS form, the row arrays.
+cudaError_t check_fb(int kind, int B, int Lq, int Wj, const float* ssf,
+                     const float* lut, int n_lut, const int* roff,
+                     const int* coff, const float* scratch,
+                     int smem_bytes) {
+  if (B < 0 || Lq < 1 || Wj < 2 || (ssf && lut) ||
+      (lut && (n_lut < 1 || n_lut > SS_LUT_MAX || !roff || !coff)))
+    return cudaErrorInvalidValue;
+  const long long need = lane_floats(kind, Wj);
+  if (need > 0 && !scratch && smem_bytes < 4 * need)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,49 +1503,147 @@ const char* hh_post_error_string(int err) {
 
 // Floats of a CTA's row arrays for kernel kind 0 (R1), 1 (R2), 2 (R3) at
 // a row of Wj cells: the dynamic shared bytes / 4, or a lane's share of
-// the global scratch; -1 for arguments the kernels do not take.
+// the global scratch (0: R1/R2 keep their rows in registers); -1 for
+// arguments the kernels do not take.
 long long hh_post_lane_floats(int kind, int Wj) { return lane_floats(kind, Wj); }
 
-// R1.  qp (Lq+2, 20), qtr (Lq+2, 7); tp (B, Wj+1, 20), ttr (B, Wj+1, 7);
-// co (B, Lq+1, Wj) bytes (nonzero = cell off); ssf (B, Lq+1, Wj) and ss0
-// (B,) or null; tL (B,) each hit's last column (global mode's exits;
-// null for Wj - 1); cs = 2^shift; scratch: null with smem_bytes =
-// 4 * hh_post_lane_floats(0, Wj), or B such slices with smem_bytes = 0.
+// R1.  qp (Lq+2, 20), qtr (Lq+2, 7); tp (B, Wj+1, 20), ttr (B, Wj+1, 7)
+// (qp and tp 16-byte aligned); co (B, Lq+1, Wj) bytes (nonzero = cell
+// off); the SS factors: null, the dense ssf (B, Lq+1, Wj), or the table
+// lut (n_lut <= 4096 floats) with roff (B, Lq+1) and coff (B, Wj) int32
+// (the factor at (i, j): lut[coff < 0 ? 0 : roff[i] + coff[j]], offsets
+// in range, not checked); ss0 (B,) or null; tL (B,) each hit's last
+// column (global mode's exits; null for Wj - 1); cs = 2^shift.  Rows of
+// more than 8 columns a thread (Wj > 1024): scratch null with smem_bytes
+// >= 4 * hh_post_lane_floats(0, Wj), or B such slices.
 int hh_post_forward(const float* qp, const float* qtr, const float* tp,
                     const float* ttr, const uint8_t* co, const float* ssf,
-                    const float* ss0, const int* tL, int B, int Lq, int Wj,
-                    float cs, int local, float* scratch, int smem_bytes,
-                    float* fwd,
-                    float* scales, float* pfwd, void* stream) {
-  if (B < 0 || Lq < 1 || Wj < 2 || (!scratch && smem_bytes <= 0))
-    return cudaErrorInvalidValue;
+                    const float* lut, int n_lut, const int* roff,
+                    const int* coff, const float* ss0, const int* tL, int B,
+                    int Lq, int Wj, float cs, int local, float* scratch,
+                    int smem_bytes, float* fwd, float* scales, float* pfwd,
+                    void* stream) {
+  cudaError_t e = check_fb(0, B, Lq, Wj, ssf, lut, n_lut, roff, coff,
+                           scratch, smem_bytes);
+  if (e != cudaSuccess) return e;
   if (B == 0) return 0;
   const int c = (Wj + T - 1) / T;
-  cudaError_t e = prepare(fb_forward_kernel, smem_bytes);
-  if (e != cudaSuccess) return e;
-  fb_forward_kernel<<<B, T, smem_bytes, (cudaStream_t)stream>>>(
-      qp, qtr, tp, ttr, co, ssf, ss0, tL, Lq, Wj, c, cs, local, scratch,
-      fwd, scales, pfwd);
+  const int ss = ssf ? SS_DENSE : lut ? SS_TABLE : SS_NONE;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (c > CROW) {
+#define HH_FWD_WIDE(S)                                                     \
+  e = prepare(fb_forward_wide<S>, smem_bytes);                             \
+  if (e != cudaSuccess) return e;                                          \
+  fb_forward_wide<S><<<B, T, smem_bytes, s>>>(                             \
+      qp, qtr, tp, ttr, co, ssf, lut, roff, coff, ss0, tL, Lq, Wj, c, cs,  \
+      local, scratch, fwd, scales, pfwd);
+    if (ss == SS_DENSE) {
+      HH_FWD_WIDE(SS_DENSE)
+    } else if (ss == SS_TABLE) {
+      HH_FWD_WIDE(SS_TABLE)
+    } else {
+      HH_FWD_WIDE(SS_NONE)
+    }
+#undef HH_FWD_WIDE
+    return cudaGetLastError();
+  }
+  const int lut_bytes = lut ? 4 * n_lut : 0;
+#define HH_FWD(C, S)                                                       \
+  {                                                                        \
+    const int sm = 4 * ProfCols<C>::SMEM + lut_bytes;                      \
+    e = prepare(fb_forward_kernel<C, S>, sm);                              \
+    if (e != cudaSuccess) return e;                                        \
+    fb_forward_kernel<C, S><<<B, T, sm, s>>>(                              \
+        qp, qtr, tp, ttr, co, ssf, lut, n_lut, roff, coff, ss0, tL, Lq,    \
+        Wj, cs, local, fwd, scales, pfwd);                                 \
+  }
+#define HH_FWD_C(C)                                                        \
+  if (ss == SS_DENSE) {                                                    \
+    HH_FWD(C, SS_DENSE)                                                    \
+  } else if (ss == SS_TABLE) {                                             \
+    HH_FWD(C, SS_TABLE)                                                    \
+  } else {                                                                 \
+    HH_FWD(C, SS_NONE)                                                     \
+  }
+  switch (c) {
+    case 1: HH_FWD_C(1) break;
+    case 2: HH_FWD_C(2) break;
+    case 3: HH_FWD_C(3) break;
+    case 4: HH_FWD_C(4) break;
+    case 5: HH_FWD_C(5) break;
+    case 6: HH_FWD_C(6) break;
+    case 7: HH_FWD_C(7) break;
+    default: HH_FWD_C(8) break;
+  }
+#undef HH_FWD_C
+#undef HH_FWD
   return cudaGetLastError();
 }
 
-// R2.  As R1, with R1's fwd, scales and pfwd; pmm (B, Lq+1, Wj); tL as
-// R1 (the global mode's column-Lt reset).
+// R2.  As R1 (the SS factors in the same three forms), with R1's fwd,
+// scales and pfwd; pmm (B, Lq+1, Wj); tL as R1 (the global mode's
+// column-Lt reset).
 int hh_post_backward(const float* qp, const float* qtr, const float* tp,
                      const float* ttr, const uint8_t* co, const float* ssf,
-                     const float* fwd, const float* scales,
+                     const float* lut, int n_lut, const int* roff,
+                     const int* coff, const float* fwd, const float* scales,
                      const float* pfwd, const int* tL, int B, int Lq,
                      int Wj, float cs, int local, float* scratch,
                      int smem_bytes, float* pmm, void* stream) {
-  if (B < 0 || Lq < 1 || Wj < 2 || (!scratch && smem_bytes <= 0))
-    return cudaErrorInvalidValue;
+  cudaError_t e = check_fb(1, B, Lq, Wj, ssf, lut, n_lut, roff, coff,
+                           scratch, smem_bytes);
+  if (e != cudaSuccess) return e;
   if (B == 0) return 0;
   const int c = (Wj + T - 1) / T;
-  cudaError_t e = prepare(fb_backward_kernel, smem_bytes);
-  if (e != cudaSuccess) return e;
-  fb_backward_kernel<<<B, T, smem_bytes, (cudaStream_t)stream>>>(
-      qp, qtr, tp, ttr, co, ssf, fwd, scales, pfwd, tL, Lq, Wj, c, cs,
-      local, scratch, pmm);
+  const int ss = ssf ? SS_DENSE : lut ? SS_TABLE : SS_NONE;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (c > CROW) {
+#define HH_BWD_WIDE(S)                                                     \
+  e = prepare(fb_backward_wide<S>, smem_bytes);                            \
+  if (e != cudaSuccess) return e;                                          \
+  fb_backward_wide<S><<<B, T, smem_bytes, s>>>(                            \
+      qp, qtr, tp, ttr, co, ssf, lut, roff, coff, fwd, scales, pfwd, tL,   \
+      Lq, Wj, c, cs, local, scratch, pmm);
+    if (ss == SS_DENSE) {
+      HH_BWD_WIDE(SS_DENSE)
+    } else if (ss == SS_TABLE) {
+      HH_BWD_WIDE(SS_TABLE)
+    } else {
+      HH_BWD_WIDE(SS_NONE)
+    }
+#undef HH_BWD_WIDE
+    return cudaGetLastError();
+  }
+  const int lut_bytes = lut ? 4 * n_lut : 0;
+#define HH_BWD(C, S)                                                       \
+  {                                                                        \
+    const int sm = 4 * ProfCols<C>::SMEM + lut_bytes;                      \
+    e = prepare(fb_backward_kernel<C, S>, sm);                             \
+    if (e != cudaSuccess) return e;                                        \
+    fb_backward_kernel<C, S><<<B, T, sm, s>>>(                             \
+        qp, qtr, tp, ttr, co, ssf, lut, n_lut, roff, coff, fwd, scales,    \
+        pfwd, tL, Lq, Wj, cs, local, pmm);                                 \
+  }
+#define HH_BWD_C(C)                                                        \
+  if (ss == SS_DENSE) {                                                    \
+    HH_BWD(C, SS_DENSE)                                                    \
+  } else if (ss == SS_TABLE) {                                             \
+    HH_BWD(C, SS_TABLE)                                                    \
+  } else {                                                                 \
+    HH_BWD(C, SS_NONE)                                                     \
+  }
+  switch (c) {
+    case 1: HH_BWD_C(1) break;
+    case 2: HH_BWD_C(2) break;
+    case 3: HH_BWD_C(3) break;
+    case 4: HH_BWD_C(4) break;
+    case 5: HH_BWD_C(5) break;
+    case 6: HH_BWD_C(6) break;
+    case 7: HH_BWD_C(7) break;
+    default: HH_BWD_C(8) break;
+  }
+#undef HH_BWD_C
+#undef HH_BWD
   return cudaGetLastError();
 }
 

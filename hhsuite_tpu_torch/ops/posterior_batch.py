@@ -45,7 +45,19 @@ sum runs sequentially inside the segment, then through a pairwise tree
 over T.  The plain versions below compute in exactly that association
 on (B, T, c) views, so kernel and plain version are bit-identical on
 IEEE f32 (the kernels are built with ``-fmad=false``); both hold to the
-JAX package's reassociated f32 within its own tests' tolerances.
+JAX package's reassociated f32 within its own tests' tolerances.  R1
+and R2 keep a row in registers up to c = 8 (Wj <= 1024, every warp
+running the scans itself); wider rows keep their arrays in shared
+memory, or past :data:`SMEM_MAX` in a global scratch.
+
+The SS factors of R1/R2 come in two forms: the dense (B, Lq+1, Lt+1)
+matrix ``ss_f`` (the JAX layout), or ``ss_table = (lut, roff, coff)``:
+a flat f32 table (entry 0 is 1.0), (B, Lq+1) int32 row offsets and
+(B, Lt+1) int32 column offsets, the factor at (b, i, j) being
+``lut[roff[b, i] + coff[b, j]]``, or ``lut[0]`` where ``coff[b, j] <
+0`` (:func:`ss_expand`; the realign path's form,
+``search/posterior.py:PosteriorDecoder.ss_table``).  The kernels stage
+the table in shared memory; the plain versions expand it.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors
 they launch the kernel or raise.  ``<wrapper>.launches`` counts kernel
@@ -70,6 +82,8 @@ LAMDA = 0.388
 
 # threads a CTA (one hit); the segment layout of every row follows it
 T = 128
+# the most entries an SS table may have (csrc/posterior.cu:SS_LUT_MAX)
+SS_LUT_MAX = 4096
 # dynamic shared memory a CTA may take for its row arrays; wider rows
 # keep them in a global scratch instead (the same code, another base)
 SMEM_MAX = 160 * 1024
@@ -181,6 +195,25 @@ def _tree_sum(x, c):
     return acc[:, 0]
 
 
+def ss_expand(lut, roff, coff):
+    """The dense (B, Lq+1, Wj) SS factors of the table form: one
+    gather, ``lut[roff[b, i] + coff[b, j]]``, entry 0 where ``coff < 0``."""
+    roff = torch.as_tensor(roff).to(torch.long)
+    coff = torch.as_tensor(coff).to(torch.long)
+    idx = torch.where(coff[:, None, :] < 0, 0,
+                      roff[:, :, None] + coff[:, None, :])
+    return torch.as_tensor(lut)[idx]
+
+
+def _ss_dense(ss_f, ss_table):
+    """The plain versions' SS factors: ``ss_f``, or the table expanded."""
+    if ss_table is None:
+        return ss_f
+    if ss_f is not None:
+        raise ValueError("give the SS factors dense or as a table, not both")
+    return ss_expand(*ss_table)
+
+
 def _profile_dot(qp, tp, W):
     """PF[b, i, j] = sum_a qp[i, a] * tp[b, j, a], a in order (the
     kernels' sum), columns past tp's padded to W with zeros."""
@@ -216,12 +249,13 @@ def _last_col(t_L, B, Wj, dev):
 
 
 def fb_forward_plain(qp, qtr, tp, ttr, co, cshift, ss_f=None, ss0=None,
-                     local=True, t_L=None):
+                     local=True, t_L=None, ss_table=None):
     """Plain PyTorch version of R1 (any device).  qp (Lq+2, 20), qtr
     (Lq+2, 7) linear query transitions; tp (B, Lt+2, 20), ttr (B, Lt+2,
     7) linear template transitions; co (B, Lq+1, Lt+1) bool cell-off;
     ``cshift`` = 2^shift as an f32 value; ss_f (B, Lq+1, Lt+1) optional
-    SS factors and ss0 (B,) the boundary column's factor; ``t_L`` (B,)
+    SS factors (or ``ss_table``, the table form) and ss0 (B,) the
+    boundary column's factor; ``t_L`` (B,)
     each lane's true length, the column through which global mode's
     rows above Lq exit (None: column Lt for every lane).  Returns the
     forward MM matrix (B, Lq+1, Lt+1), the row scales (B, Lq+2): three
@@ -230,7 +264,8 @@ def fb_forward_plain(qp, qtr, tp, ttr, co, cshift, ss_f=None, ss0=None,
     Lq = Li - 1
     dev = tp.device
     f32 = torch.float32
-    c, W, PF1, PFC, okf, tt = _inputs(qp, qtr, tp, ttr, co, cshift, ss_f)
+    c, W, PF1, PFC, okf, tt = _inputs(qp, qtr, tp, ttr, co, cshift,
+                                      _ss_dense(ss_f, ss_table))
     q = qtr.to(f32)
     t_mm, t_mi, t_md, t_im, t_ii, t_dm, t_dd = (
         tt[:, k] for k in (M2M, M2I, M2D, I2M, I2I, D2M, D2D))
@@ -301,18 +336,20 @@ def _posterior(fw, bw, ok, P):
 
 
 def fb_backward_plain(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd,
-                      ss_f=None, local=True, t_L=None):
+                      ss_f=None, local=True, t_L=None, ss_table=None):
     """Plain PyTorch version of R2 (any device): the Backward rows from
     the last query row up, each turned into its posterior row p_mm = fwd
     * bwd / Pforward on open cells (0 elsewhere and in column 0).
     ``fwd``, ``scales``, ``pfwd``: R1's outputs; ``t_L`` as R1's (global
     mode resets each lane's own last column; local mode column Lt, as the
     JAX package: the columns past a lane's are off, so both give the
-    same rows).  Returns p_mm (B, Lq+1, Lt+1)."""
+    same rows); ``ss_f`` / ``ss_table`` as R1's.  Returns p_mm (B, Lq+1,
+    Lt+1)."""
     B, Li, Wj = co.shape
     Lq = Li - 1
     f32 = torch.float32
-    c, W, _PF1, PFC, okf, tt = _inputs(qp, qtr, tp, ttr, co, cshift, ss_f)
+    c, W, _PF1, PFC, okf, tt = _inputs(qp, qtr, tp, ttr, co, cshift,
+                                       _ss_dense(ss_f, ss_table))
     q = qtr.to(f32)
     t_mm, t_mi, t_md, t_im, t_ii, t_dm, t_dd = (
         tt[:, k] for k in (M2M, M2I, M2D, I2M, I2I, D2M, D2D))
@@ -553,10 +590,10 @@ def forward_score(scales, pfwd, Lq: int, Lt: int, local: bool) -> np.ndarray:
 def bind(lib):
     """Set the C signatures of ``csrc/posterior.cu``'s entry points."""
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hh_post_forward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, Fl, I,
-                                    P, I, P, P, P, P]
-    lib.hh_post_backward.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                     Fl, I, P, I, P, P]
+    lib.hh_post_forward.argtypes = [P, P, P, P, P, P, P, I, P, P, P, P, I,
+                                    I, I, Fl, I, P, I, P, P, P, P]
+    lib.hh_post_backward.argtypes = [P, P, P, P, P, P, P, I, P, P, P, P, P,
+                                     P, I, I, I, Fl, I, P, I, P, P]
     lib.hh_post_mac.argtypes = [P, P, P, I, I, I, Fl, I, P, I, P, P, P, P]
     lib.hh_post_walk.argtypes = [P, P, P, P, P, I, I, I, I, P, P]
     for fn in ("hh_post_forward", "hh_post_backward", "hh_post_mac",
@@ -602,11 +639,13 @@ def _ptr(x) -> Optional[int]:
 
 
 def _f32(x, dev, shape, what):
-    """A contiguous f32 tensor on ``dev`` of ``shape``, or raise."""
+    """A contiguous, 16-byte aligned f32 tensor on ``dev`` of ``shape``
+    (the kernels read rows of 20 floats as float4), or raise."""
     if x.device != dev or tuple(x.shape) != tuple(shape):
         raise ValueError(f"{what}: expected {tuple(shape)} on {dev}, got "
                          f"{tuple(x.shape)} on {x.device}")
-    return x.to(torch.float32).contiguous()
+    x = x.to(torch.float32).contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _lane_arrays(lib, kind: int, B: int, Wj: int, dev):
@@ -614,12 +653,35 @@ def _lane_arrays(lib, kind: int, B: int, Wj: int, dev):
     memory when they fit :data:`SMEM_MAX`, else in a global scratch of
     B lanes."""
     n = int(lib.hh_post_lane_floats(kind, Wj))
+    if n == 0:                         # R1/R2 in registers
+        return 0, None
     if n * 4 <= SMEM_MAX:
         return n * 4, None
     return 0, torch.empty(B * n, dtype=torch.float32, device=dev)
 
 
-def _common(qp, qtr, tp, ttr, co, ss_f):
+def _int32_2d(x, dev, shape, what):
+    if x.device != dev or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {tuple(shape)} on {dev}, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    return x.to(torch.int32).contiguous()
+
+
+def _table(ss_table, dev, B, Li, Wj):
+    """The table form's (lut, n_lut, roff, coff) for the kernels, or
+    Nones."""
+    if ss_table is None:
+        return None, 0, None, None
+    lut, roff, coff = ss_table
+    if lut.device != dev or lut.dim() != 1 or not 1 <= lut.numel() <= \
+            SS_LUT_MAX:
+        raise ValueError(f"SS table: 1 to {SS_LUT_MAX} entries on {dev}")
+    return (lut.to(torch.float32).contiguous(), lut.numel(),
+            _int32_2d(roff, dev, (B, Li), "roff"),
+            _int32_2d(coff, dev, (B, Wj), "coff"))
+
+
+def _common(qp, qtr, tp, ttr, co, ss_f, ss_table=None):
     dev = _require_cuda(tp)
     B, Li, Wj = co.shape
     Lq = Li - 1
@@ -634,8 +696,12 @@ def _common(qp, qtr, tp, ttr, co, ss_f):
         raise ValueError("co must be a bool tensor on the kernels' device")
     co = co.contiguous()
     if ss_f is not None:
+        if ss_table is not None:
+            raise ValueError("give the SS factors dense or as a table, "
+                             "not both")
         ss_f = _f32(ss_f, dev, (B, Li, Wj), "ss_f")
-    return dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f
+    return (dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f,
+            _table(ss_table, dev, B, Li, Wj))
 
 
 def _int32(t_L, dev):
@@ -643,9 +709,11 @@ def _int32(t_L, dev):
             else torch.as_tensor(t_L).to(dev, torch.int32).contiguous())
 
 
-def _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local, t_L):
-    dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f = _common(qp, qtr, tp, ttr,
-                                                         co, ss_f)
+def _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local, t_L,
+                    ss_table=None):
+    (dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f,
+     (lut, n_lut, roff, coff)) = _common(qp, qtr, tp, ttr, co, ss_f,
+                                         ss_table)
     if ss0 is not None:
         ss0 = _f32(ss0, dev, (B,), "ss0")
     tl = _int32(t_L, dev)
@@ -656,8 +724,8 @@ def _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local, t_L):
     smem, scratch = _lane_arrays(lib, 0, B, Wj, dev)
     rc = lib.hh_post_forward(
         qp.data_ptr(), qtr.data_ptr(), tp.data_ptr(), ttr.data_ptr(),
-        co.data_ptr(), _ptr(ss_f), _ptr(ss0), _ptr(tl), B, Lq, Wj,
-        float(cshift),
+        co.data_ptr(), _ptr(ss_f), _ptr(lut), n_lut, _ptr(roff),
+        _ptr(coff), _ptr(ss0), _ptr(tl), B, Lq, Wj, float(cshift),
         int(bool(local)), _ptr(scratch), smem, fwd.data_ptr(),
         scales.data_ptr(), pfwd.data_ptr(), _stream(dev))
     _check(lib, rc, "R1 fb_forward")
@@ -666,9 +734,10 @@ def _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local, t_L):
 
 
 def _launch_backward(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd, ss_f,
-                     local, t_L):
-    dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f = _common(qp, qtr, tp, ttr,
-                                                         co, ss_f)
+                     local, t_L, ss_table=None):
+    (dev, B, Lq, Wj, qp, qtr, tp, ttr, co, ss_f,
+     (lut, n_lut, roff, coff)) = _common(qp, qtr, tp, ttr, co, ss_f,
+                                         ss_table)
     fwd = _f32(fwd, dev, (B, Lq + 1, Wj), "fwd")
     scales = _f32(scales, dev, (B, Lq + 2), "scales")
     pfwd = _f32(pfwd, dev, (B,), "pfwd")
@@ -678,9 +747,9 @@ def _launch_backward(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd, ss_f,
     smem, scratch = _lane_arrays(lib, 1, B, Wj, dev)
     rc = lib.hh_post_backward(
         qp.data_ptr(), qtr.data_ptr(), tp.data_ptr(), ttr.data_ptr(),
-        co.data_ptr(), _ptr(ss_f), fwd.data_ptr(), scales.data_ptr(),
-        pfwd.data_ptr(), _ptr(tl), B, Lq, Wj, float(cshift),
-        int(bool(local)),
+        co.data_ptr(), _ptr(ss_f), _ptr(lut), n_lut, _ptr(roff),
+        _ptr(coff), fwd.data_ptr(), scales.data_ptr(), pfwd.data_ptr(),
+        _ptr(tl), B, Lq, Wj, float(cshift), int(bool(local)),
         _ptr(scratch), smem, pmm.data_ptr(), _stream(dev))
     _check(lib, rc, "R2 fb_backward")
     fb_backward.launches += 1
@@ -733,28 +802,28 @@ def _launch_walk(b_mac, p_mm, i2, j2, score, kmax):
 # ---------------------------------------------------------- public ----
 
 def fb_forward(qp, qtr, tp, ttr, co, cshift, ss_f=None, ss0=None,
-               local=True, t_L=None):
+               local=True, t_L=None, ss_table=None):
     """R1: (fwd MM (B, Lq+1, Lt+1), scales (B, Lq+2), Pforward (B,));
     see :func:`fb_forward_plain`."""
     if tp.device.type == "cpu":
         return fb_forward_plain(qp, qtr, tp, ttr, co, cshift, ss_f, ss0,
-                                local, t_L)
+                                local, t_L, ss_table)
     return _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local,
-                           t_L)
+                           t_L, ss_table)
 
 
 fb_forward.launches = 0
 
 
 def fb_backward(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd, ss_f=None,
-                local=True, t_L=None):
+                local=True, t_L=None, ss_table=None):
     """R2: the posterior p_mm (B, Lq+1, Lt+1); see
     :func:`fb_backward_plain`."""
     if tp.device.type == "cpu":
         return fb_backward_plain(qp, qtr, tp, ttr, co, cshift, fwd, scales,
-                                 pfwd, ss_f, local, t_L)
+                                 pfwd, ss_f, local, t_L, ss_table)
     return _launch_backward(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd,
-                            ss_f, local, t_L)
+                            ss_f, local, t_L, ss_table)
 
 
 fb_backward.launches = 0
@@ -782,35 +851,38 @@ mac_walk_packed8.launches = 0
 
 
 def fb_mac_rows(qp, qtr_lin, tp, ttr_lin, co, shift, mact, ss_fpow2=None,
-                ss0_fpow2=None, local=True, t_L=None):
+                ss0_fpow2=None, local=True, t_L=None, ss_table=None):
     """Forward + Backward + MAC for a batch of hits, without the score:
     R1, R2 and R3 (the realign path's form; it keeps the search scores).
+    The SS factors come dense (``ss_fpow2``) or as ``ss_table``.
     Returns (b_mac (B, Lq+1, Lt+1) uint8, i2, j2 (B,) int32, p_mm (B,
     Lq+1, Lt+1) f32, R1's scales (B, Lq+2) and Pforward (B,)), all on the
     inputs' device."""
     cshift = float(np.exp2(np.float32(shift)))
     fwd, scales, pfwd = fb_forward(qp, qtr_lin, tp, ttr_lin, co, cshift,
-                                   ss_fpow2, ss0_fpow2, local, t_L)
+                                   ss_fpow2, ss0_fpow2, local, t_L,
+                                   ss_table)
     p_mm = fb_backward(qp, qtr_lin, tp, ttr_lin, co, cshift, fwd, scales,
-                       pfwd, ss_fpow2, local, t_L)
+                       pfwd, ss_fpow2, local, t_L, ss_table)
     del fwd
     b_mac, i2, j2 = mac_dp(p_mm, co, mact, local, t_L)
     return b_mac, i2, j2, p_mm, scales, pfwd
 
 
 def fb_mac_batch(qp, qtr_lin, tp, ttr_lin, co, shift, mact, ss_fpow2=None,
-                 ss0_fpow2=None, local=True, t_L=None):
+                 ss0_fpow2=None, local=True, t_L=None, ss_table=None):
     """Forward + Backward + MAC for a batch of hits (the JAX
     ``fb_mac_batch`` signature, torch tensors on one device):
     :func:`fb_mac_rows` and the Forward score from R1's outputs on the
     host.  ``t_L`` (B,) gives each lane's true length: in global mode
     its exits (Forward, Backward and the argmax) are at that column, so
-    a padded lane decodes as its unpadded template does.  Returns (score
+    a padded lane decodes as its unpadded template does; ``ss_table`` the
+    table form of the SS factors.  Returns (score
     (B,) f32, b_mac (B, Lq+1, Lt+1) uint8, i2, j2 (B,) int32, p_mm (B,
     Lq+1, Lt+1) f32), all on the inputs' device."""
     b_mac, i2, j2, p_mm, scales, pfwd = fb_mac_rows(
         qp, qtr_lin, tp, ttr_lin, co, shift, mact, ss_fpow2, ss0_fpow2,
-        local, t_L)
+        local, t_L, ss_table)
     Lq, Lt = co.shape[1] - 1, co.shape[2] - 1
     score = torch.from_numpy(forward_score(scales, pfwd, Lq, Lt, local))
     return score.to(tp.device), b_mac, i2, j2, p_mm

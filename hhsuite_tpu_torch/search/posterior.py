@@ -25,7 +25,7 @@ import numpy as np
 
 from .. import fastmath as fm
 from ..constants import (D2D, D2M, FWD_BKW_PATHWIDTH, I2I, I2M, M2D, M2I,
-                         M2M, NTRANS)
+                         M2M, MAXCF, NDSSP, NSSPRED, NTRANS)
 from ..core.hit import Hit, log_pvalue, pvalue
 from ..core.hmm import HMM
 
@@ -273,6 +273,64 @@ class PosteriorDecoder:
                       ).astype(np.float32)
         return out
 
+    def ss_lut(self) -> np.ndarray:
+        """The SS factors of every mode as one f32 table: entry 0 is 1.0,
+        then ``fpow2`` of the ssw-weighted S37 (mode 1, PRED_DSSP), S73
+        (mode 2, DSSP_PRED) and S33 (mode 3, PRED_PRED), flat."""
+        if self.S73 is None:
+            return np.ones(1, np.float32)
+        return np.concatenate([np.ones(1, np.float32)] + [
+            fm.fpow2((self.ssw * S).reshape(-1).astype(np.float32))
+            for S in (self.S37, self.S73, self.S33)]).astype(np.float32)
+
+    def ss_table(self, q: HMM, lanes, B: int, Wj: int):
+        """A realign chunk's SS factors in the table form of
+        ops/posterior_batch.py: (lut, roff (B, Lq+1) int32, coff (B, Wj)
+        int32), the factor at (b, i, j) ``lut[roff[b, i] + coff[b, j]]``,
+        or ``lut[0]`` = 1.0 where ``coff[b, j] < 0``.  ``lanes`` lists a
+        (template, SS mode) pair a lane; the lanes after them, a lane of
+        mode 0 and the columns past a template's ``L`` read 1.0.  Entry
+        for entry the values :meth:`_ss_matrix` and ``fpow2`` give (the
+        same clamped indices, rows and column 0 included).  The kernels
+        read the table without a bound: offsets out of range raise
+        here."""
+        lut = self.ss_lut()
+        Lq = q.L
+        roff = np.zeros((B, Lq + 1), np.int32)
+        coff = np.full((B, Wj), -1, np.int32)
+        if self.S73 is None:
+            return lut, roff, coff
+        i32 = np.int32
+        iq = np.minimum(np.arange(Lq + 1), q.ss_pred.shape[0] - 1)
+        qpc = q.ss_pred[iq].astype(i32) * MAXCF + q.ss_conf[iq]
+        npc = NSSPRED * MAXCF
+        # mode: (its block's first entry, its size, columns a query row)
+        base37 = 1
+        base73 = base37 + self.S37.size
+        base33 = base73 + self.S73.size
+        blocks = {1: (base37, self.S37.size, NDSSP),    # S37[qp, qc, td]
+                  2: (base73, self.S73.size, npc),      # S73[qd, tp, tc]
+                  3: (base33, self.S33.size, npc)}      # S33[qp, qc, tp, tc]
+        rows = {1: base37 + qpc * NDSSP,
+                2: base73 + q.ss_dssp[iq].astype(i32) * npc,
+                3: base33 + qpc * npc}
+        for b, (t, ssm) in enumerate(lanes):
+            if not ssm:
+                continue
+            base, size, ncol = blocks[ssm]
+            jt = np.minimum(np.arange(t.L + 1), t.ss_pred.shape[0] - 1)
+            if ssm == 1:
+                cols = t.ss_dssp[jt].astype(i32)
+            else:
+                cols = t.ss_pred[jt].astype(i32) * MAXCF + t.ss_conf[jt]
+            # each factor inside its mode's block of the table
+            if (rows[ssm].min() < base or rows[ssm].max() > base + size - ncol
+                    or cols.min() < 0 or cols.max() >= ncol):
+                raise ValueError("SS table offsets out of range")
+            roff[b] = rows[ssm]
+            coff[b, : t.L + 1] = cols
+        return lut, roff, coff
+
     def _fb_mac_native(self, nat, q, t, hit, p_mm, co, shift, mact,
                        scale) -> Optional[np.ndarray]:
         """Run _forward/_backward/_mac through the C++ decoder
@@ -371,6 +429,10 @@ class PosteriorDecoder:
         the card, their plain versions on the CPU): per chunk one mask
         build, R1, R2, R3, R4 and one copy of the packed payload.
 
+        The SS factors go to the kernels as a table (:meth:`ss_table`:
+        the ~10 KB table, a row offset a query row and a column offset a
+        template column, per lane), not as a dense matrix.
+
         ``items`` is a list of (hit, t, co) with templates already in
         linear-transition form and ``co`` a :class:`RealignMaskSpec` or
         a bool corridor.  Float32 bulk path: posteriors agree with the
@@ -449,9 +511,11 @@ class PosteriorDecoder:
             else:
                 co = np.ones((B, Lq + 1, Wj), bool)
             need_ss = any(h.ssm2 for h, _t, _c in part)
+            ss_table = None
             if need_ss:
-                # dense SS factors, filled on the host for each hit
-                ss_f = np.ones((B, Lq + 1, Wj), np.float32)
+                # the SS factors as a table with per-lane offsets
+                ss_table = tuple(dev(x) for x in self.ss_table(
+                    q, [(t, h.ssm2) for h, t, _c in part], B, Wj))
                 ss0 = np.ones(B, np.float32)
             for b, (hit, t, co_h) in enumerate(part):
                 tp[b, : t.L + 2] = t.p.astype(np.float32)
@@ -459,9 +523,6 @@ class PosteriorDecoder:
                 if not use_spec:
                     co[b, :, : t.L + 1] = co_h
                 if need_ss and hit.ssm2:
-                    m = self._ss_matrix(q, t, hit.ssm2)
-                    ss_f[b, :, : t.L + 1] = fm.fpow2(
-                        m[: Lq + 1, : t.L + 1].astype(np.float32))
                     ss0[b] = fm.fpow2(np.float32(_score_ss_single(
                         q, t, 1, t.L + 1, self.ssw, hit.ssm2,
                         self.S73, self.S37, self.S33)))
@@ -475,13 +536,12 @@ class PosteriorDecoder:
             else:
                 co_d = dev(co)
             b_mac, i2_d, j2_d, p_mm_d, _sc, _pf = fb_mac_rows(
-                qp, qtr, dev(tp), dev(ttr), co_d, shift, mact,
-                dev(ss_f) if need_ss else None,
+                qp, qtr, dev(tp), dev(ttr), co_d, shift, mact, None,
                 dev(ss0) if need_ss else None, local=self.local,
-                t_L=dev(t_Ls))
+                t_L=dev(t_Ls), ss_table=ss_table)
             packed_d = mac_walk_packed8(b_mac, p_mm_d, i2_d, j2_d,
                                         torch.zeros(B, device=device), kmax)
-            del co_d, b_mac, p_mm_d, _sc, _pf
+            del co_d, b_mac, p_mm_d, _sc, _pf, ss_table
             stage_add("host_realign_assemble", time.perf_counter() - t0)
 
             t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 // A CPU stand-in for the part of the CUDA runtime that
-// hhsuite_tpu_torch/csrc/viterbi.cu and csrc/prefilter.cu use, so that
-// their kernels compile with g++ and run on the CPU
-// (tests/test_torch_cuda_emulation.py,
-// tests/test_torch_prefilter_emulation.py).
+// hhsuite_tpu_torch/csrc/viterbi.cu, csrc/prefilter.cu and
+// csrc/posterior.cu use, so that their kernels compile with g++ and run
+// on the CPU (tests/test_torch_cuda_emulation.py,
+// tests/test_torch_prefilter_emulation.py,
+// tests/test_torch_posterior_emulation.py).
 //
 // Every CUDA thread of a block is a std::thread; blocks run one after
 // another, so a function-scope `static` array is the block's shared
@@ -38,6 +39,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 
@@ -77,6 +79,16 @@ template <class T>
 inline T __shfl_up_sync(unsigned, T v, int d, int width) {
   const int lane = threadIdx.x % 32, l = lane % width;
   return emu_shfl(v, l >= d ? lane - d : lane);
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src, int width) {
+  const int lane = threadIdx.x % 32;
+  return emu_shfl(v, lane - lane % width + src % width);
+}
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, int d, int width) {
+  const int lane = threadIdx.x % 32, l = lane % width;
+  return emu_shfl(v, l + d < width ? lane + d : lane);
 }
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int m, int width) {

@@ -9,7 +9,8 @@ padding only), and K4 and K5 at their wavefront's edges at each group
 width, with the sequences of one warp far apart in length; the realign
 kernels R1-R3 bit for bit and R4 byte for byte at their edges
 (``chip_smoke.realign_edge_shapes``) and at the path's chunk of 256 hits,
-SS on and off, local and global; the walk W1 byte for byte on K2/K3's
+SS off, dense and as a table (R1/R2 in both SS forms), local and
+global; the walk W1 byte for byte on K2/K3's
 storage view and on contiguous bytes at every K2/K3 edge shape, with a
 lane of padding, planted codes 1 and 7 and a short kmax (``-k walk``).
 Needs a CUDA card;
@@ -336,11 +337,15 @@ def test_prefilter_kernel_path_shape(cuda, stage):
 
 REALIGN_CASES = realign_edge_shapes() + [
     ("path chunk", LQ_RE, LT_RE, B_RE, 3, ss, local, "pad")
-    for ss in (False, True) for local in (True, False)]
+    for ss in (False, True, "mix") for local in (True, False)]
 
 
-@pytest.mark.parametrize("case", REALIGN_CASES,
-                         ids=lambda c: f"{c[0]}-ss{int(c[5])}-loc{int(c[6])}")
+def _realign_id(c):
+    ss = c[5] if isinstance(c[5], str) else int(c[5])
+    return f"{c[0]}-ss{ss}-loc{int(c[6])}"
+
+
+@pytest.mark.parametrize("case", REALIGN_CASES, ids=_realign_id)
 def test_realign_kernels_bit_identical(cuda, case):
     tag, Lq, Lt_pad, B, P, ss, local, extras = case
     x = realign_inputs(Lq, Lt_pad, B, P, ss, seed=Lq + B, device=cuda,
@@ -349,14 +354,18 @@ def test_realign_kernels_bit_identical(cuda, case):
                 PB.mac_walk_packed8)
     n0 = [f.launches for f in counters]
     realign_check(x, local, tag)      # raises where a kernel differs
-    assert [f.launches for f in counters] == [k + 1 for k in n0]
+    # R1 and R2 once a SS form (the dense one, and the table if any)
+    nf = 1 + (x["ss_table"] is not None)
+    assert [f.launches for f in counters] == [
+        n0[0] + nf, n0[1] + nf, n0[2] + 1, n0[3] + 1]
 
 
 def test_realign_kernels_global_scratch(cuda, monkeypatch):
     """Rows too wide for shared memory keep their arrays in the global
-    scratch: forced here at a narrow row."""
+    scratch: forced here at a row of 9 columns a thread (R1/R2 keep
+    narrower rows in registers)."""
     monkeypatch.setattr(PB, "SMEM_MAX", 0)
-    x = realign_inputs(40, 256, 6, 2, True, seed=3, device=cuda,
+    x = realign_inputs(40, 1100, 6, 2, True, seed=3, device=cuda,
                        extras="pad")
     args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], REALIGN_SHIFT,
             REALIGN_MACT, x["ss_f"], x["ss0"], True, x["t_L"])

@@ -8,9 +8,13 @@ codes, argmax) and R4 (the packed walk) are held bit for bit (R4 byte
 for byte) to their plain versions at ``chip_smoke.realign_edge_shapes``:
 a row narrower than the CTA, a row that does not fill its last segment,
 one query row, padding lanes, an empty walk, ragged ``t_L`` in global
-mode, SS factors on and off, 0-3 exclusion bands; and once with the row
-arrays in the global scratch instead of shared memory.  Skips where g++
-is missing.
+mode, SS factors off, dense, and as a table (each SS mode, SS and
+non-SS lanes in one chunk; R1 and R2 in both SS forms), 0-3 exclusion
+bands, rows of 1-8 columns a thread (R1/R2 in registers, the profile
+of 5 in shared memory), 9 (the wide kernels in shared memory) and 47
+(their global scratch); and once with
+every row array forced into the global scratch.  Skips where g++ is
+missing.
 """
 
 import numpy as np
@@ -46,7 +50,7 @@ def _same(a, b):
 
 
 CASES = realign_edge_shapes() + [
-    ("row arrays in the global scratch", 6, 150, 2, 1, True, True, "pad")]
+    ("row arrays in the global scratch", 6, 1100, 2, 1, True, True, "pad")]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c[0])
@@ -62,16 +66,23 @@ def test_emulated_realign_kernels_bit_identical(post_emulated, monkeypatch,
     n0 = [f.launches for f in (PB.fb_forward, PB.fb_backward, PB.mac_dp,
                                PB.mac_walk_packed8)]
 
+    # the SS forms: dense (or none), and the table where there is one
+    forms = [(x["ss_f"], None)]
+    if x["ss_table"] is not None:
+        forms.append((None, x["ss_table"]))
     fwd, scales, pfwd = PB.fb_forward_plain(*args, x["ss_f"], x["ss0"],
                                             local, x["t_L"])
-    got = PB._launch_forward(*args, x["ss_f"], x["ss0"], local, x["t_L"])
-    for a, b in zip(got, (fwd, scales, pfwd)):
-        assert _same(a, b)
+    for ss_f, table in forms:
+        got = PB._launch_forward(*args, ss_f, x["ss0"], local, x["t_L"],
+                                 table)
+        for a, b in zip(got, (fwd, scales, pfwd)):
+            assert _same(a, b)
 
     pmm = PB.fb_backward_plain(*args, fwd, scales, pfwd, x["ss_f"], local,
                                x["t_L"])
-    assert _same(PB._launch_backward(*args, fwd, scales, pfwd, x["ss_f"],
-                                     local, x["t_L"]), pmm)
+    for ss_f, table in forms:
+        assert _same(PB._launch_backward(*args, fwd, scales, pfwd, ss_f,
+                                         local, x["t_L"], table), pmm)
     assert torch.isfinite(pmm).all()
 
     bmac, i2, j2 = PB.mac_dp_plain(pmm, x["co"], REALIGN_MACT, local,
@@ -92,5 +103,7 @@ def test_emulated_realign_kernels_bit_identical(post_emulated, monkeypatch,
         assert not local or bool(torch.isfinite(score[-1]))
     if "empty" in extras:
         assert i2[1] == 1 and n[1] == 0
+    nf = len(forms)
     assert [f.launches for f in (PB.fb_forward, PB.fb_backward, PB.mac_dp,
-                                 PB.mac_walk_packed8)] == [k + 1 for k in n0]
+                                 PB.mac_walk_packed8)] == [
+        n0[0] + nf, n0[1] + nf, n0[2] + 1, n0[3] + 1]
