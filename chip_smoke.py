@@ -19,9 +19,9 @@ and no result line:
    ``vit_score_kernel``, K1/K6: fast, exact, SS table and dense SS at G
    = 8, 16, 32) and of the prefilter kernels (the four instantiations of
    ``pf_wave_kernel``: K4 and K5, table in shared or global memory), of
-   the realign kernels (R1-R4) and of the walk (W1, ``bt_walk_kernel``),
-   and the prefilter's integer add / min / max instructions
-   (``cuobjdump -sass``);
+   the realign kernels (R1-R4: the 64 instantiations) and of the walk
+   (W1, ``bt_walk_kernel``), and the prefilter's integer add / min /
+   max instructions (``cuobjdump -sass``);
 1. each kernel against its plain PyTorch version on the card at the
    search path's shapes: the Viterbi kernels (K1 fast and exact, K2, K3
    with altali masks, global, and with the SS table, K6 with the SS
@@ -31,10 +31,12 @@ and no result line:
    form and its table form bit-identical, K6 without SS equal to K1
    exact; K1/K6 and K2/K3 at their wavefronts' edge shapes; the walk W1
    byte-identical to its plain version on K2's bt (the kernel's storage
-   view) and on the plain version's contiguous bt, both walks timed on
-   K2's bt in one call, and at every K2/K3 edge; the
-   prefilter kernels (K4, K5) int-identical at the path's shape and at
-   edge shapes, each timed at each group width G = 8, 16, 32 and held at
+   view) and on the plain version's contiguous bt, timed on both
+   layouts beside the plain walk on K2's bt in one call, with a model of
+   the bt bytes and sectors its tiles load, and at every K2/K3 edge;
+   R1-R4 at the realign chunk (R3 also at Lt_pad 512) and at their
+   edges; the prefilter kernels (K4, K5) int-identical at the path's
+   shape and at edge shapes, each timed at each group width G = 8, 16, 32 and held at
    its wavefront's edge shapes at each; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
@@ -295,7 +297,8 @@ def realign_instantiations(usage: dict) -> dict:
     """The realign kernels' entries of :func:`ptxas_usage`: R1/R2 as
     fb_forward_kernel<C,SS> / fb_backward_kernel<C,SS> (C = 1-8 columns
     a thread; SS 0 none, 1 dense, 2 table) and fb_forward_wide<SS> /
-    fb_backward_wide<SS>, R3 mac_dp_kernel, R4 mac_walk_kernel."""
+    fb_backward_wide<SS>, R3 as mac_dp_kernel<C> and mac_dp_wide, R4
+    mac_walk_kernel."""
     import re
 
     out = {}
@@ -307,7 +310,10 @@ def realign_instantiations(usage: dict) -> dict:
         m = re.search(r"(fb_forward_wide|fb_backward_wide)ILi(\d)E", name)
         if m:
             out["%s<%s>" % m.groups()] = u
-        for k in ("mac_dp_kernel", "mac_walk_kernel"):
+        m = re.search(r"mac_dp_kernelILi(\d)E", name)
+        if m:
+            out["mac_dp_kernel<%s>" % m.group(1)] = u
+        for k in ("mac_dp_wide", "mac_walk_kernel"):
             if k in name:
                 out[k] = u
     return dict(sorted(out.items()))
@@ -518,24 +524,77 @@ def phase1_kernels(dev, usage):
     return recs
 
 
+def walk_tile_model(payload, bt, R):
+    """A model, not a measurement, of the bt that W1's tiles of side R
+    load for the walks of a payload (the plain walk's, (B, 12 + kmax)
+    int8 on any device) on ``bt`` (the card's tensor; only its address
+    and strides are used, and its smaller stride must be 1): each walk's
+    reads replayed on the host (a recorded step reads the byte at its
+    cell unless it is blocked), a tile of rows max(1, i-R+1)..i and
+    columns max(1, j-R+1)..j loaded at the first read outside the tile
+    before.  Returns (the bytes of those squares, the 32-byte sectors the
+    squares' byte runs along the unit stride touch, each tile on its
+    own).  The sectors are what the tiles would draw from device memory
+    if L2 kept nothing between tiles; the kernel's clamped duplicate
+    loads fall inside the square and add none."""
+    from hhsuite_tpu_torch.ops import viterbi as V
+
+    sb, si, sj = bt.stride()
+    if min(si, sj) != 1:
+        raise ValueError("walk_tile_model: bt has no unit stride")
+    along_i = si == 1
+    pk = np.ascontiguousarray(payload.cpu().numpy())
+    i2 = pk[:, 4:6].copy().view(np.int16)[:, 0].astype(np.int64)
+    j2 = pk[:, 6:8].copy().view(np.int16)[:, 0].astype(np.int64)
+    n = pk[:, 8:12].copy().view(np.int32)[:, 0]
+    st = pk[:, 12:].astype(np.int64)
+    di = (st == V.MM) | (st == V.DG) | (st == V.MI)
+    dj = (st == V.MM) | (st == V.GD) | (st == V.IM)
+    ii = i2[:, None] - np.cumsum(di, axis=1) + di
+    jj = j2[:, None] - np.cumsum(dj, axis=1) + dj
+    reads = ~((~di & ~dj) | (di & (ii <= 1)) | (dj & (jj <= 1)))
+    reads &= np.arange(st.shape[1])[None, :] < n[:, None]
+    nbytes = sectors = 0
+    for b in range(pk.shape[0]):
+        ri, rj = ii[b][reads[b]], jj[b][reads[b]]
+        k = 0
+        while k < ri.size:
+            i, j = int(ri[k]), int(rj[k])
+            ilo, jlo = max(1, i - R + 1), max(1, j - R + 1)
+            nbytes += (i - ilo + 1) * (j - jlo + 1)
+            # one run of nf bytes along the unit stride for each of ng
+            # rows or columns
+            nf, ng = (i - ilo + 1, j - jlo + 1) if along_i else (
+                j - jlo + 1, i - ilo + 1)
+            a0 = (bt.data_ptr() + b * sb + ilo * si + jlo * sj
+                  + np.arange(ng) * (sj if along_i else si))
+            sectors += int(((a0 + nf - 1) // 32 - a0 // 32 + 1).sum())
+            # positions only fall: the first read below or left of it
+            k = min(np.searchsorted(-ri, -ilo, side="right"),
+                    np.searchsorted(-rj, -jlo, side="right"))
+    return nbytes, sectors
+
+
 def phase1_walk(out_k, out_p, usage):
     """W1 on K2's outputs at the path shape: its payload on the kernel's
     bt (the [B][Lt+1][Wq] storage view) and on the plain version's
     contiguous bt, each byte-identical to the plain walk on the kernel's
-    bt; W1 and the plain walk timed on that bt in one call.  Bound: the
-    bytes W1 must move (the payload written once, i2/j2/score read once,
-    one bt byte a recorded step), at 3.35 TB/s.  Returns W1's record
-    (``max_abs_err``: payload bytes that differ)."""
+    bt; W1 on both layouts and the plain walk timed on that bt in one
+    call, with :func:`walk_tile_model`'s bytes and sectors of its tiles
+    on the storage view.  Bound: the bytes W1 must move (the payload
+    written once, i2/j2/score read once, one bt byte a recorded step), at
+    3.35 TB/s.  Returns W1's record (``max_abs_err``: payload bytes that
+    differ)."""
     import torch
 
     from hhsuite_tpu_torch.ops import viterbi as V
 
     kmax = LQ + LT + 1
     args = (out_k[3], out_k[1], out_k[2], out_k[0], kmax)
+    args_c = (out_p[3], out_p[1], out_p[2], out_p[0], kmax)
     n0 = V.backtrace_walk_packed8.launches
     got = V.backtrace_walk_packed8(*args)
-    got_c = V.backtrace_walk_packed8(out_p[3], out_p[1], out_p[2],
-                                     out_p[0], kmax)
+    got_c = V.backtrace_walk_packed8(*args_c)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = V.backtrace_walk_packed8_plain(*args)
@@ -548,23 +607,32 @@ def phase1_walk(out_k, out_p, usage):
         raise AssertionError(f"W1: {err} payload bytes differ from the "
                              "plain walk")
     ms = cuda_ms(lambda: V.backtrace_walk_packed8(*args), 5)
+    ms_c = cuda_ms(lambda: V.backtrace_walk_packed8(*args_c), 5)
+    tile_bytes, tile_sectors = walk_tile_model(want, args[0], V.WALK_R)
     B = out_k[0].shape[0]
     n = want[:, 8:12].cpu().numpy().copy().view(np.int32)[:, 0]
     steps = int(n.sum())
     bms, bby = bound_ms(0, B * (12 + kmax) + 12 * B + steps)
     regs = usage.get("bt_walk_kernel")
     log(f"phase1 W1 (on K2's bt): B={B} Lq={LQ} Lt={LT} kmax={kmax} "
-        f"{ms:.3f} ms, plain walk {plain_ms:.1f} ms, bound {bms:.4f} ms "
-        f"({bby}); walks of {int(n.min())}-{int(n.max())} steps (mean "
-        f"{n.mean():.1f}, {steps} in all); byte-identical on the storage "
-        f"view and on contiguous bytes; ptxas {regs} (registers, spill "
-        "stores, spill loads)")
+        f"R={V.WALK_R} G={V.WALK_G}: {ms:.3f} ms on the storage view, "
+        f"{ms_c:.3f} ms on contiguous bytes; plain walk {plain_ms:.1f} ms, "
+        f"bound {bms:.4f} ms ({bby}); walks of {int(n.min())}-"
+        f"{int(n.max())} steps (mean {n.mean():.1f}, {steps} in all); "
+        "byte-identical on both layouts; ptxas "
+        f"{regs} (registers, spill stores, spill loads)")
+    log(f"phase1 W1 tiles on the storage view (modelled, not measured): "
+        f"{tile_bytes} bt bytes in the squares ({tile_bytes / steps:.1f} a "
+        f"step), {tile_sectors} 32-byte sectors touched "
+        f"({32 * tile_sectors / steps:.1f} bytes a step)")
     return dict(
         name="W1 backtrace_walk_packed8 (the Viterbi path walk into the "
         "payload)", route="cuda", source="hhsuite_tpu_torch/csrc/viterbi.cu",
         replaces="hhsuite_tpu/ops/viterbi.py:495", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
-        ptxas=regs, kmax=kmax, steps=steps)
+        ptxas=regs, kmax=kmax, steps=steps, contiguous_ms=ms_c,
+        tile=[V.WALK_R, V.WALK_G], tile_bytes_model=tile_bytes,
+        tile_sectors_model=tile_sectors)
 
 
 def bt_edge_shapes():
@@ -1192,7 +1260,8 @@ def phase1_realign(dev, usage):
                         f"Lt_pad={LT_RE} {ms:.3f} ms, plain {plain_ms:.1f} "
                         f"ms, bound {bms:.4f} ms ({bby}); "
                         + ("byte-identical" if key == "R4"
-                           else "bit-identical"))
+                           else "bit-identical")
+                        + f"; ptxas {usage.get(kname)}")
             else:
                 # the other forms: kernel time only (R1/R2 with SS in
                 # both SS forms)
@@ -1231,17 +1300,22 @@ def phase1_realign(dev, usage):
     tag = "Lt_pad 512, SS off, local"
     x = realign_inputs(LQ_RE, 512, B_RE, 3, False, SEED + 50, dev,
                        extras="pad")
-    fwd, scales, pfwd = check(x, True, tag)[:3]
+    fwd, scales, pfwd, pmm = check(x, True, tag)[:4]
     args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
     times = {"R1": cuda_ms(lambda: PB.fb_forward(
         *args, local=True, t_L=x["t_L"]), 3),
              "R2": cuda_ms(lambda: PB.fb_backward(
-        *args, fwd, scales, pfwd, local=True, t_L=x["t_L"]), 3)}
+        *args, fwd, scales, pfwd, local=True, t_L=x["t_L"]), 3),
+             "R3": cuda_ms(lambda: PB.mac_dp(
+        pmm, x["co"], REALIGN_MACT, True, x["t_L"]), 3)}
     for key, ms in times.items():
         recs[key]["other_ms"][tag] = ms
-    log(f"phase1 R1-R2 ({tag}): " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in times.items()) + "; bit-identical")
-    del x, fwd, scales, pfwd
+    r3_bound = realign_bound("R3", x, False)
+    log(f"phase1 R1-R3 ({tag}): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()) + "; bit-identical; "
+        f"R3 bound {r3_bound[0]:.4f} ms ({r3_bound[1]}), ptxas "
+        f"mac_dp_kernel<5> {usage.get('mac_dp_kernel<5>')}")
+    del x, fwd, scales, pfwd, pmm
     t0 = time.perf_counter()
     for k, (tag, Lq, Lt_pad, B, P, ss, local, extras) in enumerate(
             realign_edge_shapes()):
@@ -2182,18 +2256,20 @@ def phase0_builds() -> dict:
     for key, (regs, st, ld) in post.items():
         log(f"phase0 {key}: {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
-    if len(post) != 56:
+    if len(post) != 64:
         raise AssertionError(f"phase0: ptxas reported {len(post)} realign "
-                             "kernel instantiations, not 56")
-    # the path's: R1/R2 at 4 columns a thread without SS
+                             "kernel instantiations, not 64")
+    usage.update(post)
+    # the path's: R1-R3 at 4 columns a thread without SS
     for kname, *_rest in REALIGN_KERNELS.values():
-        usage[kname] = post.get(kname + "<4,0>", post.get(kname))
+        usage[kname] = post.get(kname + "<4,0>",
+                                post.get(kname + "<4>", post.get(kname)))
     for name, u in ptxas_usage(infos["viterbi"].log).items():
         if "bt_walk_kernel" in name:
             usage["bt_walk_kernel"] = u
     for key, (kname, *_rest) in list(REALIGN_KERNELS.items()) + [
             ("W1", ("bt_walk_kernel",))]:
-        if kname not in usage:
+        if usage.get(kname) is None:
             raise AssertionError(f"phase0: ptxas reported no {kname}")
         regs, st, ld = usage[kname]
         log(f"phase0 {key} {kname}: {regs} registers, {st} bytes spill "

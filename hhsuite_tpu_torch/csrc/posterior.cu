@@ -9,7 +9,7 @@
 //       -> fb_backward_kernel<C, SS> (fb_backward_wide<SS>) /
 //          hh_post_backward
 //   R3  fb_mac_batch's MAC rows, backtrace codes and argmax (:281-351)
-//       -> mac_dp_kernel / hh_post_mac
+//       -> mac_dp_kernel<C> (mac_dp_wide) / hh_post_mac
 //   R4  mac_walk (:470) + mac_walk_packed8 (:418): the MAC backtrace
 //       with the path posteriors, into the packed payload
 //       -> mac_walk_kernel / hh_post_walk
@@ -64,12 +64,28 @@
 // operands and the SS table read from global memory; 20 barriers a
 // row).
 //
-// R3 (mac_dp_kernel) keeps the row arrays as the wide kernels do; it
-// keeps each thread's best cell (strict ">" in row-major order) and
-// reduces them by (score desc, flat index asc).  R4 runs one thread per
-// hit over at most kmax steps, reading b_mac with the pre-masking
-// (column 1 and row 1 STOP) applied on the fly, and writes the payload
-// bytes directly.
+// R3 for rows of c <= CROW columns a thread: mac_dp_kernel<C>.  What
+// bounds it: 13 f32 operations a cell and 6 bytes (p_mm, the cell-off
+// byte, the code), so at B = 256 hits and Wj = 385 a row moves ~0.6
+// MB, ~0.18 us at 3.35 TB/s; the row is a dependent chain (the
+// three-way max, the max-plus chain, the IM code), and the block-scan
+// design paid ~2 us a row for its 11 barriers, its row arrays in shared
+// memory and its global reads inside the row.  Now S, the three-way
+// maxima, the codes and the chain's running values live in registers;
+// the row's p_mm and cell-off bytes come by cp.async MAC_PD rows ahead
+// into the thread's own shared-memory slots (a load issued one row
+// ahead was moved by the compiler to the row's end, and its latency
+// showed); a row meets one block barrier: the segment aggregates in
+// two-parity shared slots, scanned by every warp itself
+// (ks_maxplus_warp); a thread rebuilds its left neighbour's final S,
+// which the IM code and the next row's diagonal need, from that
+// neighbour's aggregate, and writes a row's codes during the next row's
+// scan.  Wider rows keep the block-scan design (mac_dp_wide: the row
+// arrays in shared memory or the global scratch).  Each thread keeps
+// its best cell (strict ">" in row-major order), reduced by (score
+// desc, flat index asc).  R4 runs one thread per hit over at most kmax
+// steps, reading b_mac with the pre-masking (column 1 and row 1 STOP)
+// applied on the fly, and writes the payload bytes directly.
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -1295,9 +1311,286 @@ __global__ void __launch_bounds__(T) fb_backward_wide(
 }
 
 // ------------------------------------------------------------------ R3 --
-// MAC rows, backtrace codes and the argmax.  bmac (B, Lq+1, Wj) uint8;
-// i2, j2 (B,) int32.
+// rows of inputs R3 has in flight
+constexpr int MAC_PD = 4;
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The max-plus chain's Kogge-Stone scan of ks_maxplus, run by every warp
+// over the T segment aggregates held as scan_row holds them (element l +
+// 32 m in register m of lane l), each element through the same combines
+// in the same order: bit-identical, no block barrier.
+__device__ __forceinline__ void ks_maxplus_warp(float (&V)[NE],
+                                                float (&D)[NE]) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int src = (l - d) & 31;
+    const bool wrap = l < d;
+    float rV[NE], rD[NE];
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+      rV[m] = __shfl_sync(FULL, V[m], src, 32);
+      rD[m] = __shfl_sync(FULL, D[m], src, 32);
+    }
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+      // the partner: register m of lane src, or across the warp's edge
+      // register m - 1 (indices known at compile time: a register array
+      // indexed at run time becomes a chain of selects); none before
+      // element 0
+      const int mo = m > 0 ? m - 1 : 0;
+      const float xV = wrap ? rV[mo] : rV[m];
+      const float xD = wrap ? rD[mo] : rD[m];
+      if (!wrap || m > 0) {
+        V[m] = mx(V[m], xV - D[m]);
+        D[m] = xD + D[m];
+      }
+    }
+  }
+#pragma unroll
+  for (int dm = 1; dm < NE; dm <<= 1) {
+#pragma unroll
+    for (int m = NE - 1; m >= dm; --m) {
+      V[m] = mx(V[m], V[m - dm] - D[m]);
+      D[m] = D[m - dm] + D[m];
+    }
+  }
+}
+
+// MAC rows, backtrace codes and the argmax for rows of C <= CROW columns
+// a thread.  bmac (B, Lq+1, Wj) uint8; i2, j2 (B,) int32.  The row (S, the
+// three-way maxima, the codes, the chain's running values) lives in
+// registers; the row's inputs (p_mm and the cell-off bytes of columns j0
+// - 1 .. j0 + C - 1) come by cp.async MAC_PD rows ahead.  A
+// row publishes each segment's aggregate (its chain value and decay sum)
+// in shared slots of two parities and meets one block barrier; every
+// warp then scans the T aggregates itself (ks_maxplus_warp), and a
+// thread rebuilds its left neighbour's final S (the IM code's S[j - 1],
+// and the next row's S(i-1, j-1)) from that neighbour's aggregate and
+// the scan.
+template <int C>
 __global__ void __launch_bounds__(T) mac_dp_kernel(
+    const float* __restrict__ pmm, const uint8_t* __restrict__ co,
+    const int* __restrict__ tL, int Lq, int Wj, float mact, int local,
+    uint8_t* __restrict__ bmac, int* __restrict__ i2,
+    int* __restrict__ j2) {
+  constexpr int NW = (C + 7) / 4;  // words that hold C + 1 bytes
+  __shared__ float2 sA[2][T];
+  __shared__ float ring_p[MAC_PD][C][T];
+  __shared__ float ring_c[MAC_PD][NW][T];
+  __shared__ float red_v[T];
+  __shared__ long long red_k[T];
+  const int b = blockIdx.x, t = threadIdx.x, j0 = t * C;
+  const long long plane = (long long)(Lq + 1) * Wj;
+  const float* pb = pmm + b * plane;
+  const uint8_t* cob = co + b * plane;
+  uint8_t* bb = bmac + b * plane;
+  const int lastcol = tL ? tL[b] : Wj - 1;
+  const float half = 0.5f * mact;
+  float best = -FLT_MAX;
+  long long bestk = 0;
+  // S of the row above in this thread's columns, and in column j0 - 1
+  float S[C], nbS = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    S[k] = 0.0f;
+    if (j0 + k < Wj) bb[j0 + k] = 0;
+  }
+  // a row's inputs, fetched MAC_PD rows ahead by cp.async into this
+  // thread's own slots (read by no other thread: no barrier), one commit
+  // group a row: p_mm of its C columns (zero past the row) and the
+  // aligned words that hold the cell-off bytes of columns j0 - 1 .. j0 +
+  // C - 1 (a word past the tensor's end copies only its bytes inside)
+  const uint8_t* co_end = co + (long long)gridDim.x * plane;
+  auto fetch = [&](int i) {
+    if (i > Lq) {                 // past the last row: an empty group
+      cp_async_commit();
+      return;
+    }
+    const int d = i % MAC_PD;
+    const float* prow = pb + (long long)i * Wj;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const bool in = j0 + k < Wj;
+      cp_async4(&ring_p[d][k][t], in ? prow + j0 + k : pmm, in ? 4 : 0);
+    }
+    const uint8_t* w0 = reinterpret_cast<const uint8_t*>(
+        reinterpret_cast<uintptr_t>(cob + (long long)i * Wj + j0 - 1) &
+        ~uintptr_t(3));
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const long long left = co_end - (w0 + 4 * w);
+      cp_async4(&ring_c[d][w][t], w0 + 4 * w,
+                left >= 4 ? 4 : left > 0 ? (int)left : 0);
+    }
+    cp_async_commit();
+  };
+  // row i's inputs from its slot: p_mm, and the cell-off byte of column
+  // j0 - 1 + k (1 = off, also outside the row)
+  float po[C];
+  uint8_t cb[C + 1];
+  auto take = [&](int i) {
+    const int d = i % MAC_PD;
+#pragma unroll
+    for (int k = 0; k < C; ++k) po[k] = ring_p[d][k][t];
+    unsigned wv[NW];
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      wv[w] = (unsigned)__float_as_int(ring_c[d][w][t]);
+    const int o = (int)(reinterpret_cast<uintptr_t>(
+                            cob + (long long)i * Wj + j0 - 1) & 3);
+#pragma unroll
+    for (int k = 0; k <= C; ++k) {
+      // byte o + k of the words: in word k / 4 or the next one
+      constexpr int NWm = NW - 1;
+      const unsigned lo = wv[k / 4], hi = wv[k / 4 + 1 < NW ? k / 4 + 1 : NWm];
+      const unsigned word = (k % 4) + o >= 4 ? hi : lo;
+      const int j = j0 - 1 + k;
+      const unsigned byte = (word >> (8 * ((k + o) & 3))) & 0xffu;
+      cb[k] = j >= 0 && j < Wj ? (uint8_t)byte : (uint8_t)1;
+    }
+  };
+  // row r's codes and best cells, from its final S (in S), the final S
+  // of column j0 - 1 (nbr), its three-way maxima and codes, open cells
+  float pMX[C];
+  int pV[C];
+  bool pok[C];
+  auto codes = [&](int r, float nbr) {
+    uint8_t* brow = bb + (long long)r * Wj;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      const float t4 = (k ? S[k - 1] : nbr) - half;
+      int v = t4 > pMX[k] ? IM : pV[k];
+      if (!pok[k] || j == 0) v = STOP;
+      if (j < Wj) brow[j] = (uint8_t)v;
+      if (pok[k] && j >= 1 && (local || r == Lq || j == lastcol) &&
+          S[k] > best) {
+        best = S[k];
+        bestk = (long long)r * Wj + j;
+      }
+    }
+  };
+  for (int i = 1; i <= MAC_PD; ++i) fetch(i);
+  cp_async_wait<MAC_PD - 1>();     // row 1's group is in
+  take(1);
+  for (int i = 1; i <= Lq; ++i) {
+    const int par = i & 1;
+    float MX[C], sl[C], DL[C];
+    int V[C];
+    bool ok[C];
+    float bS = nbS, s = 0.0f, D = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int j = j0 + k;
+      ok[k] = j < Wj && !cb[k + 1];
+      const float t1 = po[k] - mact;
+      const float t2 = (bS + po[k]) - mact;
+      const float t3 = S[k] - half;
+      int v = t1 > t2 ? STOP : MM;
+      float m = mx(t1, t2);
+      v = t3 > m ? MI : v;
+      m = mx(m, t3);
+      MX[k] = m;
+      V[k] = v;
+      float mm = ok[k] ? m : -FLT_MIN;
+      if (j == 0) mm = 0.0f;
+      const float dec = ok[k] ? half : DECAY_OFF;
+      s = k ? mx(mm, s - dec) : mm;
+      D = k ? D + dec : dec;
+      sl[k] = s;
+      DL[k] = D;
+      bS = S[k];
+    }
+    const bool okl = j0 >= 1 && !cb[0];
+    sA[par][t] = float2{s, D};
+    // row i + MAC_PD into the slot just read
+    fetch(i + MAC_PD);
+    __syncthreads();
+    float Vv[NE], Dd[NE];
+#pragma unroll
+    for (int m = 0; m < NE; ++m) {
+      const float2 a = sA[par][(t & 31) + 32 * m];
+      Vv[m] = a.x;
+      Dd[m] = a.y;
+    }
+    // the row above's codes and best cells (S still holds its final S)
+    // in the shadow of this row's scan
+    if (i > 1) codes(i - 1, nbS);
+    ks_maxplus_warp(Vv, Dd);
+    // the inclusive chain values of segments t - 1 (the carry) and t - 2
+    const float v1 = elem_near<false>(Vv, t >= 1 ? t - 1 : t);
+    const float v2 = elem_near<false>(Vv, t >= 2 ? t - 2 : t);
+    if (i < Lq) {
+      cp_async_wait<MAC_PD - 1>();   // row i + 1's group is in
+      take(i + 1);
+    }
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      float sv = sl[k];
+      if (t > 0) sv = mx(sv, v1 - DL[k]);
+      sv = ok[k] ? sv : -FLT_MIN;
+      if (j0 + k == 0) sv = 0.0f;
+      S[k] = sv;
+      pMX[k] = MX[k];
+      pV[k] = V[k];
+      pok[k] = ok[k];
+    }
+    // the left neighbour's final S in column j0 - 1, from its aggregate
+    float nb = 0.0f;
+    if (t > 0) {
+      const float2 a = sA[par][t - 1];
+      nb = a.x;
+      if (t > 1) nb = mx(nb, v2 - a.y);
+      nb = okl ? nb : -FLT_MIN;
+      if (j0 - 1 == 0) nb = 0.0f;
+    }
+    nbS = nb;
+  }
+  codes(Lq, nbS);
+  cp_async_wait<0>();
+  // the first row-major maximum: (score desc, flat index asc)
+  red_v[t] = best;
+  red_k[t] = bestk;
+  __syncthreads();
+  for (int h = T / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      const float ov = red_v[t + h];
+      const long long okk = red_k[t + h];
+      if (ov > red_v[t] || (ov == red_v[t] && okk < red_k[t])) {
+        red_v[t] = ov;
+        red_k[t] = okk;
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    const bool none = red_v[0] <= -FLT_MAX;
+    i2[b] = none ? 0 : (int)(red_k[0] / Wj);
+    j2[b] = none ? 0 : (int)(red_k[0] % Wj);
+  }
+}
+
+// ---------------------------------------------------- R3, wide rows --
+// As mac_dp_kernel, for rows of more than CROW columns a thread: the row
+// arrays S, DL, MX and V in dynamic shared memory or the global scratch,
+// the block-wide scan (ks_maxplus), 11 barriers a row.
+__global__ void __launch_bounds__(T) mac_dp_wide(
     const float* __restrict__ pmm, const uint8_t* __restrict__ co,
     const int* __restrict__ tL, int Lq, int Wj, int c, float mact, int local,
     float* scratch, uint8_t* __restrict__ bmac, int* __restrict__ i2,
@@ -1465,7 +1758,7 @@ long long lane_floats(int kind, int Wj) {
   switch (kind) {
     case 0: return c <= CROW ? 0 : 7 * W;
     case 1: return c <= CROW ? 0 : 8 * W;
-    case 2: return 3 * W + (W + 3) / 4;
+    case 2: return c <= CROW ? 0 : 3 * W + (W + 3) / 4;
     default: return -1;
   }
 }
@@ -1503,7 +1796,7 @@ const char* hh_post_error_string(int err) {
 
 // Floats of a CTA's row arrays for kernel kind 0 (R1), 1 (R2), 2 (R3) at
 // a row of Wj cells: the dynamic shared bytes / 4, or a lane's share of
-// the global scratch (0: R1/R2 keep their rows in registers); -1 for
+// the global scratch (0: R1-R3 keep their rows in registers); -1 for
 // arguments the kernels do not take.
 long long hh_post_lane_floats(int kind, int Wj) { return lane_floats(kind, Wj); }
 
@@ -1648,19 +1941,40 @@ int hh_post_backward(const float* qp, const float* qtr, const float* tp,
 }
 
 // R3.  pmm (B, Lq+1, Wj), co as R1; tL (B,) the global mode's last
-// column per hit, or null for Wj - 1.
+// column per hit, or null for Wj - 1.  Rows of more than 8 columns a
+// thread (Wj > 1024): scratch null with smem_bytes >= 4 *
+// hh_post_lane_floats(2, Wj), or B such slices.
 int hh_post_mac(const float* pmm, const uint8_t* co, const int* tL, int B,
                 int Lq, int Wj, float mact, int local, float* scratch,
                 int smem_bytes, uint8_t* bmac, int* i2, int* j2,
                 void* stream) {
-  if (B < 0 || Lq < 1 || Wj < 2 || (!scratch && smem_bytes <= 0))
+  if (B < 0 || Lq < 1 || Wj < 2) return cudaErrorInvalidValue;
+  const int c = (Wj + T - 1) / T;
+  if (c > CROW && !scratch && smem_bytes < 4 * lane_floats(2, Wj))
     return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const int c = (Wj + T - 1) / T;
-  cudaError_t e = prepare(mac_dp_kernel, smem_bytes);
-  if (e != cudaSuccess) return e;
-  mac_dp_kernel<<<B, T, smem_bytes, (cudaStream_t)stream>>>(
-      pmm, co, tL, Lq, Wj, c, mact, local, scratch, bmac, i2, j2);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (c > CROW) {
+    cudaError_t e = prepare(mac_dp_wide, smem_bytes);
+    if (e != cudaSuccess) return e;
+    mac_dp_wide<<<B, T, smem_bytes, s>>>(pmm, co, tL, Lq, Wj, c, mact, local,
+                                         scratch, bmac, i2, j2);
+    return cudaGetLastError();
+  }
+#define HH_MAC(C)                                                          \
+  mac_dp_kernel<C><<<B, T, 0, s>>>(pmm, co, tL, Lq, Wj, mact, local, bmac, \
+                                   i2, j2);
+  switch (c) {
+    case 1: HH_MAC(1) break;
+    case 2: HH_MAC(2) break;
+    case 3: HH_MAC(3) break;
+    case 4: HH_MAC(4) break;
+    case 5: HH_MAC(5) break;
+    case 6: HH_MAC(6) break;
+    case 7: HH_MAC(7) break;
+    default: HH_MAC(8) break;
+  }
+#undef HH_MAC
   return cudaGetLastError();
 }
 

@@ -93,18 +93,22 @@
 // between groups at G = 32).  Queries longer than G x 8 rows pay G-1
 // fill and drain steps and the scratch round trip a pass.
 //
-// W1 (bt_walk_kernel) is one thread a lane in blocks of 128, R4's form
-// (csrc/posterior.cu:mac_walk_kernel).  Its work is a chain of dependent
-// byte loads, one a step, a few hundred a lane, from backtrace bytes that
-// at the hot path's batch (B = 4096, Lq = 320, Lt = 384: ~530 MB) lie
-// far outside L2; the bytes it must move are the payload and one byte a
-// step (~5 MB), so its time is the latency of the longest chains, not
-// the bound.  It never waits on the host: every lane stops at STOP or at
-// kmax.  Its payload stores are one byte a thread and step, a row apart
-// across the warp; staging them in shared memory or a warp per group of
-// lanes is later work.
+// W1 (bt_walk_kernel): a team of WALK_G lanes a walk.  Its work is a
+// chain of dependent byte reads, one a step, a few hundred a lane, from
+// backtrace bytes that at the hot path's batch (B = 4096, Lq = 320, Lt =
+// 384: ~530 MB) lie far outside L2; the bytes it must move are the
+// payload and one byte a step (~5 MB).  One thread a lane, the design
+// before, paid a DRAM round trip a step and ran at ~250x that bound.
+// Now the team loads the R x R square of bt that the next >= R steps can
+// reach with independent loads, one round trip a tile, and walks it in
+// shared memory, so the kernel trades bytes (~R a step) for latency; at
+// G = 16 a warp steps two walks at once, so a step costs half a warp
+// instruction stream (R = G = 16: within noise of the fastest of the
+// sides and widths that tools/walk_mac_ablation.py times, PERF.md).  It
+// never waits on the host: every walk stops at STOP or at kmax.
 
 #include <cfloat>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -608,50 +612,134 @@ int launch_bt(int G, int smem, cudaStream_t stream, const float* qp,
 }
 
 // ------------------------------------------------------------------ W1 --
-// The backtrace walk, one thread a lane: from (i2, j2) in state MM over at
-// most kmax steps, the step rules of ops/viterbi.py:
-// backtrace_walk_packed8_plain (src/hhviterbi.cpp:83-160).  A step
-// records the state; it is blocked when the state moves neither i nor j
-// (STOP, the unused codes 1 and 7) or would cross row or column 1, and a
-// blocked step turns the state into STOP; else the byte at (i, j) gives
-// MM's next state (bits 0-2) or takes a gap state back to MM (its bit,
-// 8 << (state - GD)), and i and j move.  bt is read in place through
-// three byte strides.  The thread writes its own payload row: score f32,
-// i2 int16, j2 int16, n int32 (the steps recorded before STOP),
-// st[kmax] with zeros after the last recorded step; little-endian.
-constexpr int WALK_THREADS = 128;
+// The backtrace walk: from (i2, j2) in state MM over at most kmax steps,
+// the step rules of ops/viterbi.py:backtrace_walk_packed8_plain
+// (src/hhviterbi.cpp:83-160).  A step records the state; it is blocked
+// when the state moves neither i nor j (STOP, the unused codes 1 and 7)
+// or would cross row or column 1, and a blocked step turns the state
+// into STOP; else the byte at (i, j) gives MM's next state (bits 0-2) or
+// takes a gap state back to MM (its bit, 8 << (state - GD)), and i and
+// j move.  bt is read in place through three byte strides.  The payload
+// row: score f32, i2 int16, j2 int16, n int32 (the steps recorded before
+// STOP), st[kmax] with zeros after the last recorded step;
+// little-endian.
+//
+// Tiles (side R = WALK_R, teams of G = WALK_G lanes): a step from (i,
+// j) goes to (i-1, j-1), (i-1, j) or (i, j-1), so the walk stays inside
+// the R x R square of bt with (i, j) as its top right corner (rows and
+// columns below 1 left out: a step that would reach them is blocked and
+// reads nothing) for at least R and at most 2R - 1 reads.  A team of G
+// lanes walks one lane of the batch (32 / G walks a warp): it loads
+// that square into shared memory with independent byte loads,
+// consecutive lanes on consecutive bytes of bt's smaller stride (one
+// round trip a batch of 32 loads), then every lane of the team walks it
+// from shared memory, the same steps, staging the states, until a step
+// needs a byte outside it.  The warp works in rounds: every team walks
+// its tile, writes its staged states to the payload (at most 2R bytes,
+// coalesced) and loads its next tile; a team that has finished waits
+// for the warp's last one.  The zero tail goes out G bytes a store, the
+// header last.  Teams of fewer lanes issue fewer instructions a walk's
+// step (the warp steps 32 / G walks at once) but wait for the slowest
+// team of their warp every round.
+constexpr int WALK_WARPS = 4;   // warps a block
+constexpr int WALK_R = 16;      // the tile's side
+constexpr int WALK_G = 16;      // the lanes a walk (8, 16 or 32)
+// the moves of each state, two bits a state (bit 0: i, bit 1: j); none
+// for STOP and the unused codes 1 and 7
+constexpr int WALK_MOVES = (3 << 2 * MM) | (2 << 2 * GD) | (2 << 2 * IM)
+                           | (1 << 2 * DG) | (1 << 2 * MI);
 
-__global__ void __launch_bounds__(WALK_THREADS) bt_walk_kernel(
+constexpr int WALK_NT = WALK_WARPS * 32 / WALK_G;  // walks a block
+
+__global__ void __launch_bounds__(32 * WALK_WARPS) bt_walk_kernel(
     const uint8_t* __restrict__ bt, long long sb, long long si,
     long long sj, const int* __restrict__ i2, const int* __restrict__ j2,
     const float* __restrict__ score, int B, int kmax,
     uint8_t* __restrict__ out) {
-  const int b = blockIdx.x * WALK_THREADS + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* bb = bt + b * sb;
-  uint8_t* o = out + (long long)b * (12 + kmax);
-  int i = i2[b], j = j2[b], s = MM, n = 0, k = 0;
-  for (; k < kmax && s != STOP; ++k) {
-    o[12 + k] = (uint8_t)s;
-    ++n;
-    const bool di = s == MM || s == DG || s == MI;
-    const bool dj = s == MM || s == GD || s == IM;
-    if ((!di && !dj) || (di && i <= 1) || (dj && j <= 1)) {
-      s = STOP;
-      continue;
+  constexpr int R = WALK_R, G = WALK_G, NT = WALK_NT;
+  constexpr int LOADS = R * R / G;               // a lane's loads a tile
+  constexpr int BATCH = LOADS < 32 ? LOADS : 32;
+  __shared__ uint8_t tiles[NT][R * R];
+  __shared__ uint8_t stages[NT][2 * R];
+  const int tl = threadIdx.x % G, team = threadIdx.x / G;
+  const int b = blockIdx.x * NT + team;
+  uint8_t* tile = tiles[team];
+  uint8_t* stage = stages[team];
+  const bool real = b < B;
+  const uint8_t* bb = bt + (real ? b : 0) * sb;
+  uint8_t* o = out + (long long)(real ? b : 0) * (12 + kmax);
+  // the tile is laid out along bt's smaller stride (the fast one): byte
+  // f + R g holds offset f along it and g along the other
+  const bool along_i = (si < 0 ? -si : si) <= (sj < 0 ? -sj : sj);
+  const int pa = along_i ? 1 : R, pc = along_i ? R : 1;
+  const long long sf = along_i ? si : sj, sg = along_i ? sj : si;
+  int i = real ? i2[b] : 0, j = real ? j2[b] : 0, s = MM, k = 0, k0 = 0;
+  int ilo = INT_MAX, jlo = INT_MAX, pos = 0;  // no tile yet
+  bool done = !real;
+  while (__any_sync(0xffffffffu, !done)) {
+    bool more = !done;
+    while (more) {
+      const int mv = (WALK_MOVES >> (2 * s)) & 3, di = mv & 1, dj = mv >> 1;
+      const bool blocked = mv == 0 || (di && i <= 1) || (dj && j <= 1);
+      if (!blocked && (i < ilo || j < jlo)) break;  // the next tile
+      stage[k - k0] = (uint8_t)s;                   // the team's lanes alike
+      ++k;
+      // the gap states' bit of the byte is bit s (8 << (s - GD))
+      const int c = blocked ? 0 : tile[pos];
+      const int ns = s == MM ? (c & 7) : ((c >> s) & 1) ? MM : s;
+      s = blocked ? STOP : ns;
+      i -= di;
+      j -= dj;
+      pos -= di * pa + dj * pc;
+      more = k < kmax && s != STOP;
     }
-    const int c = bb[i * si + j * sj];
-    s = s == MM ? (c & 7) : (c & (8 << (s - GD))) ? MM : s;
-    i -= di;
-    j -= dj;
+    __syncwarp();
+    if (!done) {
+      for (int e = tl; e < k - k0; e += G) o[12 + k0 + e] = stage[e];
+      k0 = k;
+      done = k >= kmax || s == STOP;
+    }
+    // the square with (i, j) as its top right corner, its byte e = tl +
+    // G m from offset e % R along the fast stride and e / R along the
+    // other; bytes past the square (a square cut at row or column 1) are
+    // loaded from its edge and never read.  All of a batch's loads are
+    // issued before its stores: one round trip a batch
+    const uint8_t* base = bb;
+    int nf = 1, ng = 1;
+    if (!done) {
+      ilo = max(1, i - R + 1);
+      jlo = max(1, j - R + 1);
+      nf = along_i ? i - ilo + 1 : j - jlo + 1;
+      ng = along_i ? j - jlo + 1 : i - ilo + 1;
+      base = bb + ilo * si + jlo * sj;
+      pos = (i - ilo) * pa + (j - jlo) * pc;
+    }
+    __syncwarp();  // the stages are written out, the old tiles walked
+    if (!done) {
+#pragma unroll
+      for (int m0 = 0; m0 < LOADS; m0 += BATCH) {
+        uint8_t v[BATCH];
+#pragma unroll
+        for (int m = 0; m < BATCH; ++m) {
+          const int e = tl + G * (m0 + m);
+          v[m] = base[min(e % R, nf - 1) * sf + min(e / R, ng - 1) * sg];
+        }
+#pragma unroll
+        for (int m = 0; m < BATCH; ++m) tile[tl + G * (m0 + m)] = v[m];
+      }
+    }
+    __syncwarp();
   }
-  for (; k < kmax; ++k) o[12 + k] = 0;
-  const float sc = score[b];
-  const int16_t hi = (int16_t)i2[b], hj = (int16_t)j2[b];
-  memcpy(o, &sc, 4);
-  memcpy(o + 4, &hi, 2);
-  memcpy(o + 6, &hj, 2);
-  memcpy(o + 8, &n, 4);
+  if (!real) return;
+  for (int e = k + tl; e < kmax; e += G) o[12 + e] = 0;
+  if (tl == 0) {
+    const float sc = score[b];
+    const int16_t hi = (int16_t)i2[b], hj = (int16_t)j2[b];
+    memcpy(o, &sc, 4);
+    memcpy(o + 4, &hi, 2);
+    memcpy(o + 6, &hj, 2);
+    memcpy(o + 8, &k, 4);
+  }
 }
 
 }  // namespace
@@ -771,7 +859,7 @@ int hh_vit_walk(const uint8_t* bt, long long sb, long long si, long long sj,
   if (B < 0 || kmax < 1 || !bt || !i2 || !j2 || !score || !out)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  bt_walk_kernel<<<(B + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0,
+  bt_walk_kernel<<<(B + WALK_NT - 1) / WALK_NT, 32 * WALK_WARPS, 0,
                    (cudaStream_t)stream>>>(bt, sb, si, sj, i2, j2, score, B,
                                            kmax, out);
   return (int)cudaGetLastError();

@@ -45,8 +45,8 @@ sum runs sequentially inside the segment, then through a pairwise tree
 over T.  The plain versions below compute in exactly that association
 on (B, T, c) views, so kernel and plain version are bit-identical on
 IEEE f32 (the kernels are built with ``-fmad=false``); both hold to the
-JAX package's reassociated f32 within its own tests' tolerances.  R1
-and R2 keep a row in registers up to c = 8 (Wj <= 1024, every warp
+JAX package's reassociated f32 within its own tests' tolerances.  R1,
+R2 and R3 keep a row in registers up to c = 8 (Wj <= 1024, every warp
 running the scans itself); wider rows keep their arrays in shared
 memory, or past :data:`SMEM_MAX` in a global scratch.
 
@@ -653,7 +653,7 @@ def _lane_arrays(lib, kind: int, B: int, Wj: int, dev):
     memory when they fit :data:`SMEM_MAX`, else in a global scratch of
     B lanes."""
     n = int(lib.hh_post_lane_floats(kind, Wj))
-    if n == 0:                         # R1/R2 in registers
+    if n == 0:                         # R1-R3 in registers
         return 0, None
     if n * 4 <= SMEM_MAX:
         return n * 4, None

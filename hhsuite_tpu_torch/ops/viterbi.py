@@ -29,7 +29,8 @@ backtrace bytes into a packed payload of state bytes, read by
 :func:`backtrace_walk_unpack8` and the native decoder.  On a CPU tensor
 it runs its plain version (:func:`backtrace_walk_packed8_plain`, a loop
 of torch ops); on a CUDA tensor it launches ``csrc/viterbi.cu:
-bt_walk_kernel`` or raises.
+bt_walk_kernel`` (a team of lanes a walk, walking tiles of bt staged in
+shared memory) or raises.
 """
 
 from __future__ import annotations
@@ -353,8 +354,9 @@ def backtrace_walk_packed8_plain(bt, i2, j2, score, kmax: int,
 def backtrace_walk_packed8(bt, i2, j2, score, kmax: int):
     """W1: the walk payload (B, 12 + kmax) int8 of
     :func:`backtrace_walk_packed8_plain` — its plain version on a CPU
-    ``bt``, the CUDA kernel (``csrc/viterbi.cu:bt_walk_kernel``) on a
-    card's, reading bt in place through its strides.
+    ``bt``, the CUDA kernel (``csrc/viterbi.cu:bt_walk_kernel``: a team
+    of lanes a walk, walking R x R tiles of bt staged in shared memory)
+    on a card's, reading bt in place through its strides.
     ``backtrace_walk_packed8.launches`` counts kernel launches."""
     if bt.device.type == "cpu":
         return backtrace_walk_packed8_plain(bt, i2, j2, score, kmax)
@@ -362,6 +364,10 @@ def backtrace_walk_packed8(bt, i2, j2, score, kmax: int):
 
 
 backtrace_walk_packed8.launches = 0
+
+# W1's tile side and lanes a walk, as csrc/viterbi.cu builds it
+# (WALK_R, WALK_G)
+WALK_R, WALK_G = 16, 16
 
 
 def launch_walk(bt, i2, j2, score, kmax: int):

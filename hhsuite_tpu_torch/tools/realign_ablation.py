@@ -6,9 +6,9 @@ row) costs: that kernel timed as it is and in variants that each take
 one cost away, at the realign path's chunk (B = 256 hits, Lq = 300, Wj
 = 385, SS off, local).
 
-Variants (text edits of the given source, built into
-``build/ablation/<variant>/``; the repository's sources are not
-touched):
+Variants (text edits of the given source, built by
+:mod:`.ablation` into ``build/ablation/<variant>/``; the repository's
+sources are not touched):
 
 * ``base``: the source as it is;
 * ``tmpl_smem``: the template's profile and transition columns staged
@@ -35,15 +35,13 @@ line, one JSON object ``{"card": ..., "variants": {...}}``.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
 import ctypes
 import json
-import os
-import re
-import subprocess
 import sys
 
 import numpy as np
+
+from .ablation import build, card_line, edit, ptxas, timed
 
 T = 128
 
@@ -149,47 +147,24 @@ _OKF = "  return (j >= 1 && j < Wj && !co_row[j]) ? 1.0f : 0.0f;"
 _OKF_CONST = "  return (j >= 1 && j < Wj) ? 1.0f : 0.0f;"
 
 
-def _edit(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise ValueError(f"not the block-scan source: "
-                         f"{old.splitlines()[0]!r} is not there once")
-    return src.replace(old, new)
-
-
 def variants(src: str) -> dict:
     """{variant: its source}."""
-    merged = _edit(_edit(src, _SCAN_AND_TREE, _MERGED),
-                   "// The row arrays of hit b", _MERGED_FN
-                   + "\n// The row arrays of hit b")
-    no_global = _edit(_edit(src, _TMPL_FNS, _TMPL_FNS_CONST), _OKF,
-                      _OKF_CONST)
+    merged = edit(edit(src, _SCAN_AND_TREE, _MERGED),
+                  "// The row arrays of hit b", _MERGED_FN
+                  + "\n// The row arrays of hit b")
+    no_global = edit(edit(src, _TMPL_FNS, _TMPL_FNS_CONST), _OKF,
+                     _OKF_CONST)
     return {"base": src,
-            "tmpl_smem": _edit(src, _TMPL_R1, _TMPL_R1_SMEM),
+            "tmpl_smem": edit(src, _TMPL_R1, _TMPL_R1_SMEM),
             "merged_bar": merged,
             "no_global": no_global,
-            "no_global_merged": _edit(_edit(merged, _TMPL_FNS,
-                                            _TMPL_FNS_CONST), _OKF,
-                                      _OKF_CONST)}
-
-
-def _ptxas(log: str) -> str:
-    m = re.search(r"Function properties for \w*fb_forward_kernel\w*\s*\n"
-                  r".*?(\d+) bytes spill stores.*?\n.*?Used (\d+) registers",
-                  log, re.S)
-    return f"{m.group(2)} registers, {m.group(1)} bytes spilled" if m else "?"
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+            "no_global_merged": edit(edit(merged, _TMPL_FNS,
+                                          _TMPL_FNS_CONST), _OKF,
+                                     _OKF_CONST)}
 
 
 def main(argv=None) -> int:
     import torch
-
-    from hhsuite_tpu_torch.device import BUILD_DIR, build_cuda_library
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", required=True,
@@ -201,17 +176,8 @@ def main(argv=None) -> int:
         print("realign_ablation: no CUDA card", file=sys.stderr)
         return 2
     with open(args.src) as f:
-        srcs = variants(f.read())
-    dirs = {}
-    for name, src in srcs.items():
-        d = os.path.join(BUILD_DIR, "ablation", name)
-        os.makedirs(d, exist_ok=True)
-        with open(os.path.join(d, "posterior.cu"), "w") as f:
-            f.write(src)
-        dirs[name] = d
-    with concurrent.futures.ThreadPoolExecutor(len(dirs)) as ex:
-        infos = dict(zip(dirs, ex.map(
-            lambda d: build_cuda_library("posterior", d), dirs.values())))
+        infos = build({name: ("posterior", src)
+                       for name, src in variants(f.read()).items()})
 
     B, Lq, Wj = 256, 300, 385
     c = -(-Wj // T)
@@ -257,18 +223,9 @@ def main(argv=None) -> int:
             if rc != 0:
                 raise RuntimeError(f"{name}: launch failed ({rc})")
 
-        launch()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(args.reps):
-            launch()
-        e1.record()
-        torch.cuda.synchronize()
-        ms = e0.elapsed_time(e1) / args.reps
+        ms = timed(launch, args.reps)
         out[name] = dict(ms=ms, us_a_row=ms * 1e3 / (Lq - 1),
-                         ptxas=_ptxas(info.log))
+                         ptxas=ptxas(info.log, "fb_forward_kernel"))
         print(f"realign_ablation {name}: R1 {ms:.3f} ms a launch, "
               f"{ms * 1e3 / (Lq - 1):.2f} us a row; {out[name]['ptxas']}",
               flush=True)

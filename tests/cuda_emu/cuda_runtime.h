@@ -8,8 +8,8 @@
 // Every CUDA thread of a block is a std::thread; blocks run one after
 // another, so a function-scope `static` array is the block's shared
 // memory.  __syncthreads is a barrier over the block, __syncwarp one over
-// the warp, a warp shuffle a write-barrier-read-barrier over the warp's
-// 32 threads.  The f32 intrinsics are plain IEEE operations (compile
+// the warp, a warp shuffle (and __any_sync) a write-barrier-read-barrier
+// over the warp's 32 threads.  The f32 intrinsics are plain IEEE operations (compile
 // with -ffp-contract=off, as nvcc's -fmad=false).  The launch syntax and
 // cp.async are rewritten by the test before compiling.
 #pragma once
@@ -43,7 +43,7 @@ struct alignas(8) float2 { float x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
 
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 struct EmuWarp {
   std::barrier<> bar{32};
@@ -74,6 +74,15 @@ inline T emu_shfl(T v, int src) {
   T out;
   std::memcpy(&out, &r, 4);
   return out;
+}
+inline int __any_sync(unsigned, int pred) {
+  EmuWarp* w = emu_block->warps[threadIdx.x / 32].get();
+  w->buf[threadIdx.x % 32] = pred != 0;
+  w->bar.arrive_and_wait();
+  int any = 0;
+  for (int l = 0; l < 32; ++l) any |= (int)w->buf[l];
+  w->bar.arrive_and_wait();
+  return any;
 }
 template <class T>
 inline T __shfl_up_sync(unsigned, T v, int d, int width) {
@@ -133,6 +142,7 @@ inline void emu_launch(dim3 grid, dim3 block, int smem, cudaStream_t,
         threadIdx = dim3(t);
         blockIdx = dim3(bx);
         blockDim = block;
+        gridDim = grid;
         emu_block = &ctx;
         body();
       });

@@ -14,7 +14,8 @@ width, across the pass boundary), bit for bit against ``viterbi_batch``
 for byte against ``backtrace_walk_packed8_plain`` on K2/K3's storage
 view and on contiguous bytes, at every shape of
 ``chip_smoke.bt_edge_shapes``, with a lane of padding, planted codes 1
-and 7 and a kmax shorter than the paths.
+and 7 and a kmax shorter than the paths, and at planted walks that cross
+many tiles (``WALK_TILE_CASES``).
 IEEE f32 on both sides (g++ -ffp-contract=off, as nvcc -fmad=false).
 Skips where g++ is missing.
 """
@@ -308,3 +309,111 @@ def test_emulated_walk_refusals(emulated, emu_lib):
                                ptrs[4], None) != 0
     assert emu_lib.hh_vit_walk(*ptrs[:1], *bt.stride(), *ptrs[1:4], 11, 10,
                                ptrs[4], None) == 0
+
+
+# W1's tiles: planted backtrace bytes whose walks cross many tiles, run
+# along a diagonal, along a row or a column, along row 1 and column 1,
+# or through random codes (also with a kmax shorter than the walks);
+# B = 7 walks, not a multiple of the eight a block holds, the last one a
+# padding lane; each on both layouts, through the search's entry
+# (hh_vit_walk)
+WALK_PATTERNS = ("diagonal", "gap-runs", "rows-1-and-columns-1", "random",
+                 "random-short-kmax")
+WALK_TILE_CASES = [(p, layout) for p in WALK_PATTERNS
+                   for layout in ("storage", "contiguous")]
+
+
+def _walk_tile_id(case):
+    p, layout = case
+    return f"{p}-{layout}-R{TV.WALK_R}-G{TV.WALK_G}-entry"
+
+
+def walk_tile_case(pattern, layout, device="cpu"):
+    """W1's inputs for one :data:`WALK_PATTERNS` entry on ``device``: (bt
+    in ``layout``, i2, j2, score, kmax), and the contiguous bt on the
+    CPU.  Lq = 150, Lt = 140, B = 7 (lane 6 padding: i2 = j2 = 0).
+    ``diagonal``: every byte's MM code is MM; ``gap-runs``: MM opens GD
+    (even lanes) or DG (odd lanes), never closed, so the walk runs along
+    its row or column to column or row 1; ``rows-1-and-columns-1``:
+    lanes start at row 2 (MM opens GD: a run along row 1), column 2 (MM
+    opens DG: a run along column 1), at row 1 or at column 1 (blocked at
+    once); ``random``: random MM codes of the five states and gap bits
+(each set with p = 0.4), so the walks change state often and run to
+row or column 1."""
+    Lq, Lt, B = 150, 140, 7
+    rng = np.random.default_rng(len(pattern))
+    bt = np.full((B, Lq + 1, Lt + 1), TV.MM, np.uint8)
+    i2 = np.array([Lq, Lq - 3, 120, 150, 37, 149, 0], np.int32)
+    j2 = np.array([Lt, 139, 140, 17, 133, 90, 0], np.int32)
+    kmax = Lq + Lt + 1
+    if pattern == "gap-runs":
+        bt[0::2] = TV.GD
+        bt[1::2] = TV.DG
+    elif pattern == "rows-1-and-columns-1":
+        i2[:6] = [2, 90, 2, 1, 77, 1]
+        j2[:6] = [130, 2, 64, 100, 2, 1]
+        for b in range(6):
+            bt[b] = TV.GD if i2[b] == 2 else TV.DG
+    elif pattern.startswith("random"):
+        gaps = rng.random(bt.shape + (4,)) < 0.4
+        bt = (rng.integers(TV.MM, TV.MI + 1, bt.shape)
+              | (gaps * np.array([8, 16, 32, 64])).sum(-1)).astype(np.uint8)
+        if pattern == "random-short-kmax":
+            kmax = 40
+    bt_c = torch.from_numpy(bt)
+    score = torch.from_numpy(rng.normal(size=B).astype(np.float32))
+    if layout == "storage":
+        store, dev_bt = TV.bt_storage(B, Lq, Lt, torch.uint8, device)
+        store.fill_(0xAB)           # bytes outside the view never matter
+        dev_bt.copy_(bt_c)
+    else:
+        dev_bt = bt_c.to(device)
+    i2, j2 = torch.from_numpy(i2), torch.from_numpy(j2)
+    return ((dev_bt, i2.to(device), j2.to(device), score.to(device), kmax),
+            bt_c)
+
+
+def check_walk_tile_payload(got, pattern, bt, i2, j2, score, kmax):
+    """``got`` equals the plain walk byte for byte, and the pattern's
+    walks are what it plants."""
+    want = TV.backtrace_walk_packed8_plain(bt, i2.cpu(), j2.cpu(),
+                                           score.cpu(), kmax)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    n = want[:, 8:12].numpy().copy().view(np.int32)[:, 0]
+    st = want[:, 12:].numpy()
+    assert n[-1] == 1                 # the padding lane: blocked at once
+    if pattern == "diagonal":         # to row or column 1, plus the stop
+        want_n = np.minimum(i2.cpu().numpy(), j2.cpu().numpy())[:-1]
+        assert (n[:-1] == want_n).all()
+    if pattern == "gap-runs":         # one MM step, then the run
+        assert (st[0::2, 1][:3] == TV.GD).all() and n.max() > 128
+        assert (st[1::2, 1][:3] == TV.DG).all()
+    if pattern == "rows-1-and-columns-1":
+        assert list(n[:6]) == [130, 90, 64, 1, 77, 1]
+    if pattern == "random":
+        assert n.max() > 128 and n[:-1].min() > 16
+    if pattern == "random-short-kmax":
+        assert (n == kmax).sum() >= 4
+
+
+@pytest.mark.parametrize("case", WALK_TILE_CASES, ids=_walk_tile_id)
+def test_emulated_walk_tiles_byte_identical(emulated, case):
+    pattern, layout = case
+    args, bt = walk_tile_case(pattern, layout)
+    if layout == "storage":
+        assert TV.bt_base(args[0]) is not None
+    n0 = TV.backtrace_walk_packed8.launches
+    got = TV.launch_walk(*args)
+    assert TV.backtrace_walk_packed8.launches == n0 + 1
+    check_walk_tile_payload(got, pattern, bt, *args[1:])
+
+
+def test_walk_tile_constants_match_the_source():
+    # ops/viterbi.py's WALK_R / WALK_G (the model and the reports) are
+    # the ones csrc/viterbi.cu builds W1 with
+    with open(os.path.join(CSRC_DIR, "viterbi.cu")) as f:
+        src = f.read()
+    for name, value in (("WALK_R", TV.WALK_R), ("WALK_G", TV.WALK_G)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value

@@ -12,7 +12,11 @@ kernels R1-R3 bit for bit and R4 byte for byte at their edges
 SS off, dense and as a table (R1/R2 in both SS forms), local and
 global; the walk W1 byte for byte on K2/K3's
 storage view and on contiguous bytes at every K2/K3 edge shape, with a
-lane of padding, planted codes 1 and 7 and a short kmax (``-k walk``).
+lane of padding, planted codes 1 and 7 and a short kmax, and at the
+emulation test's planted walks (diagonal, row and column runs, rows and
+columns 1, random codes, a short kmax; ``-k walk``);
+R3 alone at the emulation test's planted posteriors (rows of 1-9
+columns a thread, ties, no open cell; ``-k mac_dp``).
 Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
@@ -44,8 +48,13 @@ from test_torch_prefilter import SHAPES as PF_SHAPES
 from test_torch_prefilter import make_inputs as pf_inputs
 from test_torch_viterbi import make_inputs
 from test_torch_viterbi_kernels import _ss_lut_inputs
-from test_torch_cuda_emulation import (WALK_CASES, _walk_case_id,
-                                       check_walk_payload, walk_case)
+from test_torch_cuda_emulation import (WALK_CASES, WALK_TILE_CASES,
+                                       _walk_case_id, _walk_tile_id,
+                                       check_walk_payload,
+                                       check_walk_tile_payload, walk_case,
+                                       walk_tile_case)
+from test_torch_posterior_emulation import (MAC_CASES, check_mac_dp,
+                                            mac_dp_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -396,3 +405,25 @@ def test_walk_kernel_refusals(cuda):
         TV.backtrace_walk_packed8(bt, i2, j2, score, 0)
     with pytest.raises(ValueError, match="uint8"):
         TV.backtrace_walk_packed8(bt.to(torch.int8), i2, j2, score, 10)
+
+
+@pytest.mark.parametrize("case", WALK_TILE_CASES, ids=_walk_tile_id)
+def test_walk_kernel_tiles_byte_identical(cuda, case):
+    pattern, layout = case
+    args, bt = walk_tile_case(pattern, layout, device=cuda)
+    n = TV.backtrace_walk_packed8.launches
+    got = TV.launch_walk(*args)
+    torch.cuda.synchronize()
+    assert TV.backtrace_walk_packed8.launches == n + 1
+    check_walk_tile_payload(got, pattern, bt, *args[1:])
+
+
+@pytest.mark.parametrize("case", MAC_CASES, ids=lambda c: c[0])
+def test_mac_dp_kernel_bit_identical(cuda, case):
+    _tag, Lq, Lt_pad, B, local, pattern = case
+    x = mac_dp_case(Lq, Lt_pad, B, local, pattern, device=cuda)
+    n = PB.mac_dp.launches
+    got = PB.mac_dp(x["p_mm"], x["co"], REALIGN_MACT, local, x["t_L"])
+    torch.cuda.synchronize()
+    assert PB.mac_dp.launches == n + 1
+    check_mac_dp(got, x, local, pattern)
