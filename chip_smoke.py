@@ -34,9 +34,11 @@ and no result line:
    view) and on the plain version's contiguous bt, timed on both
    layouts beside the plain walk on K2's bt in one call, with a model of
    the bt bytes and sectors its tiles load, and at every K2/K3 edge;
-   R1-R4 at the realign chunk (R3 also at Lt_pad 512) and at their
-   edges; the prefilter kernels (K4, K5) int-identical at the path's
-   shape and at edge shapes, each timed at each group width G = 8, 16, 32 and held at
+   R1-R4 at the realign chunk (R1-R4 also at Lt_pad 512) and at their
+   edges, R4 also at planted walks across its tiles' edges, beside its
+   byte bound its longest walk's steps and round trips (a model); the
+   prefilter kernels (K4, K5) int-identical at the path's shape and at
+   edge shapes, each timed at each group width G = 8, 16, 32 and held at
    its wavefront's edge shapes at each; times from CUDA events;
 2. ``hhsearch`` and ``hhblits`` (``-n 1``, ``-n 2``) through the CLI
    entry on the golden single-entry database: outputs byte-identical to
@@ -231,12 +233,18 @@ def exclusion_masks(Lq, Lt, t_L, P, seed, device):
 # ----------------------------------------------------------- timing ----
 
 def cuda_ms(fn, reps: int) -> float:
+    """ms a call of ``fn``: one warm-up call, then the mean over ``reps``
+    calls between one pair of CUDA events.  The card first spins for
+    ~5 ms (``torch.cuda._sleep``), so the host queues the timed calls
+    before the card reaches them: a call whose host work outlasts its
+    kernel (R4, W1) leaves no idle gaps in the span."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     e0.record()
     for _ in range(reps):
         fn()
@@ -930,6 +938,135 @@ def realign_edge_shapes():
              "pad")]
 
 
+def mac_walk_edge_cases():
+    """Edges of R4's tiles, on planted b_mac (:func:`mac_walk_inputs`):
+    (tag, Lq, Wj, pattern, kmax; None for the path's Lq + Wj + 1).
+    Walks that cross many tiles along the diagonal, runs of MI only and
+    of IM only across tile borders, walks that reach row 1 or column 1
+    (the pre-masking's stop) on a tile's edge and off it, STOP and
+    unused codes inside a tile (on a tile's first and last cell), starts
+    at (1, 1), (Lq, Wj - 1) and on row or column 0 or 1, starts whose
+    code is not MM, a kmax shorter than the walks and kmax = 1, a plane
+    narrower and shorter than a tile, and random codes; 7-9 hits a case
+    (not a multiple of the walks a block), the last a padding lane at
+    (0, 0)."""
+    return [("diagonal across tiles", 150, 141, "diagonal", None),
+            ("MI runs across tile borders", 150, 141, "MI runs", None),
+            ("IM runs across tile borders", 150, 141, "IM runs", None),
+            ("row 1 and column 1 on and off a tile's edge", 200, 200,
+             "edges", None),
+            ("STOP and unused codes inside tiles", 150, 141, "stops",
+             None),
+            ("starts at (1, 1), (Lq, Wj - 1), rows and columns 0 and 1",
+             90, 77, "corners", None),
+            ("starts whose code is not MM", 60, 50, "non-MM starts", None),
+            ("kmax shorter than the walks", 150, 141, "random", 40),
+            ("kmax = 1", 40, 30, "random", 1),
+            ("Lq + 1 and Wj below the tile side", 5, 7, "random", None),
+            ("random codes", 150, 141, "random", None)]
+
+
+def mac_walk_inputs(case, seed, device):
+    """R4's inputs for one :func:`mac_walk_edge_cases` case on
+    ``device``: dict of b_mac (B, Lq+1, Wj) uint8 (row 0 and column 0
+    STOP, as R3 writes them), p_mm (B, Lq+1, Wj) f32 (seeded normal
+    values), i2, j2 (B,) int32, score (B,) f32, kmax, and want_n, the
+    step counts the pattern plants (numpy, or None for random codes).
+    Row 1 lies on a tile's lower edge for walks from row 128 (tile sides
+    16, 32, 64 divide 128), off it from row 133; column 1 likewise."""
+    import torch
+
+    from hhsuite_tpu_torch.ops.posterior_batch import IM, MI, MM, STOP
+
+    _tag, Lq, Wj, pattern, kmax = case
+    kmax = Lq + Wj + 1 if kmax is None else kmax
+    rng = np.random.default_rng(seed)
+    starts = {
+        "diagonal": [(Lq, Wj - 1), (Lq - 3, Wj - 2), (120, Wj - 1),
+                     (Lq, 17), (37, Wj - 8), (Lq - 1, 90)],
+        "MI runs": [(Lq, Wj - 1), (Lq - 3, 100), (97, 40), (65, 30),
+                    (Lq, 3), (10, 2)],
+        "IM runs": [(Lq, Wj - 1), (100, Wj - 4), (40, 97), (30, 65),
+                    (3, 120), (2, 10)],
+        "edges": [(128, 150), (133, 150), (150, 128), (150, 133),
+                  (128, 190), (133, 190), (190, 128), (190, 133)],
+        "stops": [(150, 140), (149, 139), (148, 138), (147, 137),
+                  (146, 136), (145, 135)],
+        "corners": [(1, 1), (Lq, Wj - 1), (1, Wj - 1), (Lq, 1), (2, 2),
+                    (Lq, 0), (0, Wj - 1), (2, Wj - 1)],
+        "non-MM starts": [(50, 40), (51, 41), (52, 42), (53, 43),
+                          (54, 44), (55, 45)]}.get(pattern)
+    if starts is None:                 # random codes, random starts
+        starts = [(int(rng.integers((Lq + 1) // 2, Lq + 1)),
+                   int(rng.integers(Wj // 2, Wj))) for _ in range(6)]
+    i2 = np.array([s[0] for s in starts] + [0], np.int32)
+    j2 = np.array([s[1] for s in starts] + [0], np.int32)
+    B = len(i2)
+    b = np.full((B, Lq + 1, Wj), MM, np.uint8)
+    want = np.minimum(i2, j2)          # a diagonal to row or column 1
+    lanes = np.arange(B - 1)
+    if pattern == "MI runs":
+        b[:] = MI
+        want = np.where(j2 > 2, i2, 2)
+    elif pattern == "IM runs":
+        b[:] = IM
+        want = np.where(i2 > 2, j2, 2)
+    elif pattern == "edges":           # MI runs, IM runs, diagonals
+        b[0:2], b[2:4] = MI, IM
+        want = np.concatenate([i2[:2], j2[2:4], np.minimum(i2, j2)[4:]])
+    elif pattern == "stops":           # STOP and codes 3, 7, 255, 5
+        for lane, (d, code) in enumerate([(5, STOP), (40, 3), (64, 7),
+                                          (63, 255), (1, 5), (100, STOP)]):
+            b[lane, i2[lane] - d, j2[lane] - d] = code
+            want[lane] = d + 1
+    elif pattern == "corners":
+        want = np.where((i2 <= 1) | (j2 <= 1), 0, np.minimum(i2, j2))
+    elif pattern == "non-MM starts":
+        for lane, code in enumerate((MI, IM, STOP, 3, 7, 255)):
+            b[lane, i2[lane], j2[lane]] = code
+        want = np.zeros(B, np.int32)
+    elif pattern == "random":
+        b = rng.choice(np.array([MM, MI, IM, STOP], np.uint8),
+                       size=b.shape, p=[0.85, 0.07, 0.07, 0.01])
+        want = None
+    if pattern in ("MI runs", "IM runs", "edges", "random"):
+        b[lanes, i2[:-1], j2[:-1]] = MM    # one MM step, then the run
+    b[:, 0, :] = STOP
+    b[:, :, 0] = STOP
+    if want is not None:
+        want = np.minimum(np.asarray(want, np.int32), kmax)
+        want[-1] = 0                    # the padding lane
+    p = rng.standard_normal((B, Lq + 1, Wj)).astype(np.float32)
+    score = rng.standard_normal(B).astype(np.float32)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return dict(b_mac=dev(b), p_mm=dev(p), i2=dev(i2), j2=dev(j2),
+                score=dev(score), kmax=kmax, want_n=want)
+
+
+def mac_walk_check(got, x, tag):
+    """R4's payload ``got`` against the plain walk on the same inputs
+    (:func:`mac_walk_inputs`), byte for byte, and the step counts the
+    case plants; returns the number of bytes that differ (0)."""
+    import torch
+
+    from hhsuite_tpu_torch.ops import posterior_batch as PB
+
+    want = PB.mac_walk_packed8_plain(x["b_mac"], x["p_mm"], x["i2"],
+                                     x["j2"], x["score"], x["kmax"])
+    err = int((got != want).sum())
+    if not torch.equal(got, want):
+        raise AssertionError(f"R4 {tag}: payload of kernel != plain "
+                             f"({err} bytes differ)")
+    n = PB.mac_walk_unpack8(want.cpu().numpy(), x["kmax"])[3]
+    if x["want_n"] is not None and not np.array_equal(n, x["want_n"]):
+        raise AssertionError(f"R4 {tag}: walks of {list(n)} steps, "
+                             f"planted {list(x['want_n'])}")
+    return err
+
+
 # the table kinds' SS modes a lane, in turn
 SS_KINDS = {"m1": (1,), "m2": (2,), "m3": (3,), "mix": (1, 0, 2, 3)}
 
@@ -1168,6 +1305,49 @@ def realign_bound(key, x, ss, n_steps=None):
     return bound_ms(cells * (OPS_R[key] + int(ss)), nbytes)
 
 
+def mac_walk_side(src=None):
+    """R4's tile side: ``MAC_WALK_R`` in ``src``, the text of a
+    ``posterior.cu`` (by default the one this checkout builds)."""
+    import re
+
+    if src is None:
+        from hhsuite_tpu_torch.device import CSRC_DIR
+
+        with open(os.path.join(CSRC_DIR, "posterior.cu")) as f:
+            src = f.read()
+    return int(re.search(r"constexpr int MAC_WALK_R = (\d+);",
+                         src).group(1))
+
+
+def mac_walk_rounds(payload, kmax, R):
+    """A model, not a measurement, of R4's latency chain on the plain
+    walk's payload (B, 12 + 5 kmax) int8 on any device, at tile side R:
+    for each walk the steps its team walks in shared memory (n, and 1
+    for an empty walk, which reads its start) and its round trips to
+    device memory: (i2, j2), one a square of side R with the walk's
+    cell as its top right corner (loaded when a step leaves the square
+    before), and the posteriors of the last square's steps.  Returns
+    (steps, rounds) numpy int arrays."""
+    from hhsuite_tpu_torch.ops import posterior_batch as PB
+
+    _sc, i2, j2, n, _mm, _empty, _st, ii, jj, _post = PB.mac_walk_unpack8(
+        np.asarray(payload.cpu()), kmax)
+    steps = np.maximum(n, 1)
+    rounds = np.zeros(len(n), np.int64)
+    for b in range(len(n)):
+        ri = ii[b, : steps[b]] if n[b] else np.array([i2[b]])
+        rj = jj[b, : steps[b]] if n[b] else np.array([j2[b]])
+        k = tiles = 0
+        while k < ri.size:
+            tiles += 1
+            ilo, jlo = max(0, int(ri[k]) - R + 1), max(0, int(rj[k]) - R + 1)
+            # positions only fall: the first step below or left of it
+            k = min(np.searchsorted(-ri, -ilo, side="right"),
+                    np.searchsorted(-rj, -jlo, side="right"))
+        rounds[b] = tiles + 2
+    return steps, rounds
+
+
 # key -> (kernel in csrc/posterior.cu, record name, the JAX code it
 # replaces, its C entry)
 REALIGN_KERNELS = {
@@ -1190,8 +1370,9 @@ def phase1_realign(dev, usage):
     path's chunk (B = 256 hits, Lq = 300, Lt_pad = 384; corridors from
     the interval form of seeded paths with 3 exclusion bands; a padding
     lane), SS off and on (an SS table of mixed modes and non-SS lanes,
-    R1/R2 in both SS forms), local and global; then at
-    :func:`realign_edge_shapes`.  Each timed with CUDA events beside its
+    R1/R2 in both SS forms), local and global; at Lt_pad 512; then at
+    :func:`realign_edge_shapes`, and R4 alone at
+    :func:`mac_walk_edge_cases`.  Each timed with CUDA events beside its
     bound and its plain version's time (R1/R2 with SS in the dense and
     the table form too); its ``max_abs_err`` is the largest
     difference from its plain version that :func:`realign_check` measured
@@ -1249,13 +1430,31 @@ def phase1_realign(dev, usage):
                     ms = cuda_ms(lambda: call(False), 3)
                     bms, bby = realign_bound(key, x, ss, n_steps)
                     kname, name, replaces, _entry = REALIGN_KERNELS[key]
+                    walk = {}
+                    if key == "R4":
+                        side = mac_walk_side()
+                        steps, rounds = mac_walk_rounds(payload, x["kmax"],
+                                                        side)
+                        lw = int(np.argmax(steps + rounds))
+                        walk = dict(longest_steps=int(steps.max()),
+                                    chain_steps_model=int(steps[lw]),
+                                    chain_rounds_model=int(rounds[lw]))
+                        log(f"phase1 R4 latency floor (modelled): the "
+                            f"longest walk {int(steps.max())} steps; the "
+                            f"longest chain {int(steps[lw])} steps in "
+                            f"shared memory + {int(rounds[lw])} round trips"
+                            f" to device memory at R={side} (the source's "
+                            "MAC_WALK_R) "
+                            f"(walks of {float(steps.mean()):.1f} steps, "
+                            f"{float(rounds.mean()):.1f} round trips on "
+                            "average)")
                     recs[key] = dict(
                         name=name, route="cuda",
                         source="hhsuite_tpu_torch/csrc/posterior.cu",
                         replaces=replaces, max_abs_err=None, ms=ms,
                         plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                         library_ms=None,
-                        ptxas=usage.get(kname))
+                        ptxas=usage.get(kname), **walk)
                     log(f"phase1 {key} ({tag}): B={B_RE} Lq={LQ_RE} "
                         f"Lt_pad={LT_RE} {ms:.3f} ms, plain {plain_ms:.1f} "
                         f"ms, bound {bms:.4f} ms ({bby}); "
@@ -1300,22 +1499,31 @@ def phase1_realign(dev, usage):
     tag = "Lt_pad 512, SS off, local"
     x = realign_inputs(LQ_RE, 512, B_RE, 3, False, SEED + 50, dev,
                        extras="pad")
-    fwd, scales, pfwd, pmm = check(x, True, tag)[:4]
+    fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload = check(x, True,
+                                                                  tag)
     args = (x["qp"], x["qtr"], x["tp"], x["ttr"], x["co"], cs)
     times = {"R1": cuda_ms(lambda: PB.fb_forward(
         *args, local=True, t_L=x["t_L"]), 3),
              "R2": cuda_ms(lambda: PB.fb_backward(
         *args, fwd, scales, pfwd, local=True, t_L=x["t_L"]), 3),
              "R3": cuda_ms(lambda: PB.mac_dp(
-        pmm, x["co"], REALIGN_MACT, True, x["t_L"]), 3)}
+        pmm, x["co"], REALIGN_MACT, True, x["t_L"]), 3),
+             "R4": cuda_ms(lambda: PB.mac_walk_packed8(
+        bmac, pmm, i2, j2, score, x["kmax"]), 3)}
     for key, ms in times.items():
-        recs[key]["other_ms"][tag] = ms
+        recs[key].setdefault("other_ms", {})[tag] = ms
     r3_bound = realign_bound("R3", x, False)
-    log(f"phase1 R1-R3 ({tag}): " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in times.items()) + "; bit-identical; "
-        f"R3 bound {r3_bound[0]:.4f} ms ({r3_bound[1]}), ptxas "
-        f"mac_dp_kernel<5> {usage.get('mac_dp_kernel<5>')}")
-    del x, fwd, scales, pfwd, pmm
+    steps, rounds = mac_walk_rounds(payload, x["kmax"], mac_walk_side())
+    r4_bound = realign_bound("R4", x, False, int(steps.sum()) + B_RE)
+    log(f"phase1 R1-R4 ({tag}): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + "; bit-identical "
+        f"(R4 byte-identical); R3 bound {r3_bound[0]:.4f} ms "
+        f"({r3_bound[1]}), ptxas mac_dp_kernel<5> "
+        f"{usage.get('mac_dp_kernel<5>')}; R4 kmax {x['kmax']}, bound "
+        f"{r4_bound[0]:.4f} ms ({r4_bound[1]}), longest walk "
+        f"{int(steps.max())} steps, at most {int(rounds.max())} round "
+        "trips (modelled)")
+    del x, fwd, scales, pfwd, pmm, bmac, i2, j2, score, payload
     t0 = time.perf_counter()
     for k, (tag, Lq, Lt_pad, B, P, ss, local, extras) in enumerate(
             realign_edge_shapes()):
@@ -1324,6 +1532,18 @@ def phase1_realign(dev, usage):
     log(f"phase1 R1-R4 edges: {len(realign_edge_shapes())} cases "
         f"bit-identical (R4 byte-identical): "
         + "; ".join(e[0] for e in realign_edge_shapes())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for k, case in enumerate(mac_walk_edge_cases()):
+        x = mac_walk_inputs(case, 70 + k, dev)
+        got = PB.mac_walk_packed8(x["b_mac"], x["p_mm"], x["i2"], x["j2"],
+                                  x["score"], x["kmax"])
+        errs["R4"] = max(errs["R4"], float(mac_walk_check(got, x,
+                                                          case[0])))
+    log(f"phase1 R4 walk edges: {len(mac_walk_edge_cases())} cases "
+        f"byte-identical, with the planted step counts, at R="
+        f"{mac_walk_side()}: "
+        + "; ".join(c[0] for c in mac_walk_edge_cases())
         + f" ({time.perf_counter() - t0:.1f} s)")
     for k in REALIGN_KEYS:
         recs[k]["max_abs_err"] = errs[k]

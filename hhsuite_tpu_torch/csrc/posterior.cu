@@ -83,12 +83,14 @@
 // scan.  Wider rows keep the block-scan design (mac_dp_wide: the row
 // arrays in shared memory or the global scratch).  Each thread keeps
 // its best cell (strict ">" in row-major order), reduced by (score
-// desc, flat index asc).  R4 runs one thread per hit over at most kmax
-// steps, reading b_mac with the pre-masking (column 1 and row 1 STOP)
-// applied on the fly, and writes the payload bytes directly.
+// desc, flat index asc).  R4 walks each hit with a team of lanes from
+// squares of b_mac staged in shared memory, one round trip a square
+// (with the last square's path posteriors), and writes the payload with
+// the whole team (the design beside mac_walk_kernel).
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 
@@ -1697,58 +1699,214 @@ __global__ void __launch_bounds__(T) mac_dp_wide(
 }
 
 // ------------------------------------------------------------------ R4 --
-// One thread per hit: the MAC backtrace from (i2, j2) over kmax steps,
-// each step's code and posterior recorded (after the terminal code, the
-// stop cell repeats), into out (B, 12 + 5 kmax) bytes: score f32, i2
-// int16, j2 int16, n int32, st[kmax], post[kmax] f32, little-endian.
-__global__ void __launch_bounds__(T) mac_walk_kernel(
+// The MAC backtrace walk: from (i2, j2) over kmax steps, each step's
+// code and posterior recorded, into out (B, 12 + 5 kmax) bytes: score
+// f32, i2 int16, j2 int16, n int32, st[kmax] u8, post[kmax] f32,
+// little-endian.  A step records the code at (i, j), read with the
+// reference's pre-masking (column 1, and row 1 from column 1 on, read
+// as STOP), and its posterior; MM moves to (i-1, j-1), MI to (i-1, j),
+// IM to (i, j-1), any other code ends the walk, as does a start whose
+// code is not MM (n = 0).  n counts the steps up to and including the
+// one that ends the walk (at most kmax); the rest repeat that step.
+// b_mac's row 0 and column 0 hold STOP (R3 writes them so), so no walk
+// leaves the plane; a code that would is taken as the end.
+//
+// Tiles (side R = MAC_WALK_R): a step from (i, j) stays inside the R x
+// R square of b_mac with (i, j) as its top right corner (rows and
+// columns below 0 left out) for at least R and at most 2R - 1 steps.  A
+// warp walks one hit (a block is one warp).  It works in rounds of one
+// round trip each: it issues, as one batch, the loads of the posteriors
+// at the cells its last square's steps recorded (at most 2R - 1, 32 in
+// flight) and, if the walk goes on, the square's rows as aligned 4-byte
+// words (R / 4 + 1 words a row, a lane's rows consecutive in its
+// registers, addresses clamped into the row's words), then stores the
+// posteriors to its staging slots and the rows, shifted to start at the
+// square's first column, to shared memory; writes the staged codes
+// (consecutive lanes on consecutive bytes) and posteriors to the
+// payload; and every lane walks the new square in shared memory, the
+// same steps, staging each step's code and cell, until a step leaves
+// the square or the walk ends.  The payload's records (12 + 5 kmax
+// bytes) are 4-byte aligned only for some hits, so the staged
+// posteriors go out as aligned words, shifted where the run is not
+// aligned, with single bytes at its ends; the tail (the last step's
+// code and posterior repeated up to kmax) as 16-byte stores from the
+// whole warp; the header last, from one lane.  What bounds it: at the
+// realign path's 256 hits a launch is the longest walk's chain of steps
+// in shared memory and of round trips, not the bytes it moves; a warp
+// a walk and squares of side 64 (fewer round trips) measured fastest
+// against teams of 8 or 16 lanes a walk and sides 16 and 32
+// (tools/walk_mac_ablation.py, whose variants edit the source at the
+// "ablation:" marks).
+constexpr int MAC_WALK_R = 64;      // the tile's side (a multiple of 8)
+
+// nb bytes from dst set to the 4-byte pattern pat over and over (byte
+// e is byte e % 4 of pat), by the G lanes of a walk (tl its lane):
+// single bytes up to the first 16-byte boundary and past the last one,
+// 16-byte stores between
+template <int G>
+__device__ void fill_pattern(uint8_t* dst, long long nb, uint32_t pat,
+                             int tl) {
+  const int h16 = (int)(-(uintptr_t)dst & 15);
+  const long long head = h16 < nb ? h16 : nb;
+  const long long nv = (nb - head) / 16;
+  const int sh = 8 * (int)(head & 3);
+  const uint32_t w = sh ? (pat >> sh) | (pat << (32 - sh)) : pat;
+  uint4* v = reinterpret_cast<uint4*>(dst + head);
+  for (long long e = tl; e < nv; e += G) v[e] = uint4{w, w, w, w};
+  for (long long e = tl; e < head; e += G)
+    dst[e] = (uint8_t)(pat >> 8 * (e & 3));
+  for (long long e = head + 16 * nv + tl; e < nb; e += G)
+    dst[e] = (uint8_t)(pat >> 8 * (e & 3));
+}
+
+__global__ void __launch_bounds__(32) mac_walk_kernel(
     const uint8_t* __restrict__ bmac, const float* __restrict__ pmm,
     const int* __restrict__ i2, const int* __restrict__ j2,
-    const float* __restrict__ score, int B, int Lq, int Wj, int kmax,
+    const float* __restrict__ score, int Lq, int Wj, int kmax,
     uint8_t* __restrict__ out) {
-  const int b = blockIdx.x * T + threadIdx.x;
-  if (b >= B) return;
-  const long long plane = (long long)(Lq + 1) * Wj;
-  const uint8_t* bb = bmac + b * plane;
-  const float* pb = pmm + b * plane;
+  constexpr int R = MAC_WALK_R, G = 32;  // ablation:lanes
+  static_assert(R % 8 == 0, "R4's tile side");
+  // words a row: loaded, and a tile row's pitch in shared memory (odd,
+  // so the lanes' rows fall in different banks)
+  constexpr int NW = R / 4 + 1;
+  constexpr int RL = (R + G - 1) / G;     // a lane's rows a tile
+  constexpr int S = 2 * R;                // staging slots
+  constexpr int GL = (S + G - 1) / G;     // a lane's posterior loads
+  // ablation:walker
+  __shared__ uint32_t tw[R * NW];
+  __shared__ uint8_t code_s[S];
+  __shared__ int off_s[S];
+  __shared__ float post_s[S];
+  const int tl = threadIdx.x, b = blockIdx.x;
+  // ablation:end
+  const int plane = (Lq + 1) * Wj;
+  const uint8_t* bb = bmac + (long long)b * plane;
+  const float* pb = pmm + (long long)b * plane;
   uint8_t* o = out + (long long)b * (12 + 5LL * kmax);
+  const uint8_t* tile = reinterpret_cast<const uint8_t*>(tw);
   int i = i2[b], j = j2[b];
-  // the reference's pre-masking: column 1 and row 1 stop
-  auto code_at = [&](int ii, int jj) -> int {
-    return (jj == 1 || (ii == 1 && jj >= 1)) ? STOP
-                                             : bb[(long long)ii * Wj + jj];
-  };
-  bool alive = code_at(i, j) == MM;
-  int n = 0;
-  int code = 0;
-  float post = 0.0f;
-  for (int k = 0; k < kmax; ++k) {
-    code = code_at(i, j);
-    post = pb[(long long)i * Wj + j];
-    o[12 + k] = (uint8_t)code;
-    memcpy(o + 12 + kmax + 4LL * k, &post, 4);
-    if (!alive) {
-      // the cell stays: the rest of the steps repeat it
-      for (int r = k + 1; r < kmax; ++r) {
-        o[12 + r] = (uint8_t)code;
-        memcpy(o + 12 + kmax + 4LL * r, &post, 4);
+  int f = i * Wj + j;            // the cell's offset in the plane
+  int k = 0, k0 = 0, n = 0, ns = 0, ilo = 0, jlo = 0, pos = 0;
+  bool need = true;
+  for (;;) {
+    // one round trip: the staged steps' posteriors and, where the walk
+    // goes on, the square with (i, j) as its top right corner
+    // ablation:gather
+    float pv[GL];
+#pragma unroll
+    for (int m = 0; m < GL; ++m) {
+      const int e = tl + G * m;
+      pv[m] = e < ns ? pb[off_s[e]] : 0.0f;
+    }
+    // ablation:end
+    uint32_t v[RL][NW];
+    int sh[RL];
+    if (need) {
+      ilo = max(0, i - R + 1);
+      jlo = max(0, j - R + 1);
+      const int nc = j - jlo + 1;
+      pos = (i - ilo) * 4 * NW + (j - jlo);
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        // a row past the square loads its top row (never read); words
+        // past the row's last one load that word
+        const int a = min(tl + G * r, i - ilo);
+        const uintptr_t A = (uintptr_t)(bb + (ilo + a) * Wj + jlo);
+        const uint32_t* w0 = (const uint32_t*)(A & ~(uintptr_t)3);
+        const int ql = (int)(((A + nc - 1) >> 2) - (A >> 2));
+        sh[r] = 8 * (int)(A & 3);  // ablation:row
+#pragma unroll
+        for (int q = 0; q < NW; ++q) v[r][q] = __ldg(w0 + min(q, ql));
       }
-      break;
     }
-    ++n;
-    const bool go = code == MM || code == IM || code == MI;
-    if (go) {
-      i -= (code == MM || code == MI);
-      j -= (code == MM || code == IM);
+    // ablation:post_store
+#pragma unroll
+    for (int m = 0; m < GL; ++m)
+      if (tl + G * m < ns) post_s[tl + G * m] = pv[m];
+    // ablation:end
+    if (need) {
+      // each row shifted to start at the square's first column
+#pragma unroll
+      for (int r = 0; r < RL; ++r) {
+        const int a = tl + G * r;
+        if (R % G != 0 && a >= R) break;
+#pragma unroll
+        for (int q = 0; q < R / 4; ++q)
+          tw[a * NW + q] = (uint32_t)((((uint64_t)v[r][q + 1] << 32)
+                                       | v[r][q]) >> sh[r]);
+      }
     }
-    alive = go;
+    __syncwarp();
+    // the staged steps to the payload; after the last, the tail and the
+    // header
+    // ablation:codes
+    for (int e = tl; e < ns; e += G) o[12 + k0 + e] = code_s[e];
+    // ablation:end
+    // the posteriors' 4 ns bytes: aligned words, each from two staged
+    // words where the run is not aligned, and single bytes at its ends
+    uint8_t* pd = o + 12 + kmax + 4LL * k0;
+    const int h = (int)(-(uintptr_t)pd & 3);
+    // ablation:posts
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(post_s);
+    uint32_t* dw = reinterpret_cast<uint32_t*>(pd + h);
+    for (int t = tl; t < ns - (h != 0); t += G)
+      dw[t] = h ? (pw[t] >> 8 * h) | (pw[t + 1] << 8 * (4 - h)) : pw[t];
+    if (h && ns && tl < 4) {
+      const int e = tl < h ? tl : 4 * ns - 4 + tl;
+      pd[e] = reinterpret_cast<const uint8_t*>(post_s)[e];
+    }
+    // ablation:end
+    k0 = k;
+    if (!need) {
+      // the walk has ended
+      uint32_t pat;
+      memcpy(&pat, &post_s[ns - 1], 4);
+      // ablation:tail
+      fill_pattern<G>(o + 12 + k, kmax - k, code_s[ns - 1] * 0x01010101u,
+                      tl);
+      fill_pattern<G>(o + 12 + kmax + 4LL * k, 4LL * (kmax - k), pat, tl);
+      // ablation:end
+      if (tl == 0) {
+        const float sc = score[b];
+        const int16_t hi = (int16_t)i2[b], hj = (int16_t)j2[b];
+        memcpy(o, &sc, 4);
+        memcpy(o + 4, &hi, 2);
+        memcpy(o + 6, &hj, 2);
+        memcpy(o + 8, &n, 4);
+      }
+      return;
+    }
+    __syncwarp();  // the staged steps are written out
+    // every lane walks the square, the same steps
+    need = false;
+    for (;;) {
+      // the pre-masking and the moves as predicates: a short chain from
+      // one step's load to the next one's address
+      const bool mask = j == 1 || (i == 1 && j >= 1);
+      const int raw = tile[pos];
+      const bool mm = raw == MM;
+      const int di = !mask && (mm || raw == MI);
+      const int dj = !mask && (mm || raw == IM);
+      code_s[k - k0] = (uint8_t)(mask ? STOP : raw);
+      off_s[k - k0] = f;  // ablation:record
+      ++k;
+      const bool empty = k == 1 && (mask || !mm);
+      if (!(di || dj) || empty || di > i || dj > j || k == kmax) {
+        n = empty ? 0 : k;
+        break;
+      }
+      i -= di;
+      j -= dj;
+      f -= di * Wj + dj;
+      pos -= di * 4 * NW + dj;
+      if (i < ilo || j < jlo) {
+        need = true;
+        break;
+      }
+    }
+    ns = k - k0;
+    __syncwarp();
   }
-  const float sc = score[b];
-  const int16_t hi = (int16_t)i2[b], hj = (int16_t)j2[b];
-  memcpy(o, &sc, 4);
-  memcpy(o + 4, &hi, 2);
-  memcpy(o + 6, &hj, 2);
-  memcpy(o + 8, &n, 4);
 }
 
 long long lane_floats(int kind, int Wj) {
@@ -1978,15 +2136,18 @@ int hh_post_mac(const float* pmm, const uint8_t* co, const int* tL, int B,
   return cudaGetLastError();
 }
 
-// R4.  bmac, pmm (B, Lq+1, Wj); i2, j2 (B,) int32 in range; score (B,);
-// out (B, 12 + 5 kmax) bytes.
+// R4.  bmac, pmm (B, Lq+1, Wj), a plane of at most INT_MAX cells; i2,
+// j2 (B,) int32 in range; score (B,); out (B, 12 + 5 kmax) bytes.
 int hh_post_walk(const uint8_t* bmac, const float* pmm, const int* i2,
                  const int* j2, const float* score, int B, int Lq, int Wj,
                  int kmax, uint8_t* out, void* stream) {
-  if (B < 0 || Lq < 1 || Wj < 2 || kmax < 1) return cudaErrorInvalidValue;
+  if (B < 0 || Lq < 1 || Wj < 2 || kmax < 1 ||
+      (long long)(Lq + 1) * Wj > INT_MAX)
+    return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  mac_walk_kernel<<<(B + T - 1) / T, T, 0, (cudaStream_t)stream>>>(
-      bmac, pmm, i2, j2, score, B, Lq, Wj, kmax, out);
+  mac_walk_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(bmac, pmm, i2, j2,
+                                                     score, Lq, Wj, kmax,
+                                                     out);
   return cudaGetLastError();
 }
 

@@ -52,13 +52,16 @@ def ptxas(log: str, kernel: str) -> str:
 
 
 def timed(launch, reps: int) -> float:
-    """ms a launch: one warm-up, then CUDA events over ``reps``."""
+    """ms a launch: one warm-up, then CUDA events over ``reps``, behind a
+    ~5 ms spin of the card so the host queues every timed launch before
+    the card reaches it (``chip_smoke.cuda_ms``)."""
     import torch
 
     launch()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
     e0.record()
     for _ in range(reps):
         launch()

@@ -3,7 +3,7 @@
     python -m hhsuite_tpu_torch.tools.tree_pairs \\
         --tree parent=<dir of the parent commit> --tree change=. \\
         --order parent,change,change,parent [--parts walk,realign,4,5,6] \\
-        [--log-dir DIR]
+        [--timer change] [--log-dir DIR]
 
 Each tree is a checkout of the repository (``git archive`` of a commit
 unpacked into a directory that ``.gitignore`` lists).  For each group of
@@ -22,6 +22,11 @@ tree's own phases:
   ``phase6_ss`` on the benchmark databases, which this script builds
   first with the current tree's ``chip_smoke.DB_BUILD`` under
   ``chip_smoke_cache/`` (as ``chip_smoke.py`` does).
+
+With ``--timer NAME`` every child times its kernels with tree NAME's
+``chip_smoke.cuda_ms`` in place of its own, so that two trees whose
+timers differ are compared under one (phases 4-6 time with CUDA events
+around each launch, which ``cuda_ms`` does not touch).
 
 Every child's output goes to ``<log-dir>/tree_pairs-<k>-<tree>.log``
 (``chip_smoke_cache/tree_pairs/`` by default); the lines that carry the
@@ -43,7 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 CHILD = r'''
-import json, sys, time
+import importlib.util, json, os, sys, time
 sys.path.insert(0, {tree!r})
 import torch
 import chip_smoke as c
@@ -51,6 +56,14 @@ import chip_smoke as c
 dev = torch.device("cuda")
 parts = {parts!r}
 c.log("card: " + c.card_line())
+timer = {timer!r}
+if timer:
+    spec = importlib.util.spec_from_file_location(
+        "timer_smoke", os.path.join(timer, "chip_smoke.py"))
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+    c.cuda_ms = t.cuda_ms
+    c.log(f"timer: cuda_ms of {{timer}}/chip_smoke.py")
 t0 = time.perf_counter()
 usage = c.phase0_builds()
 c.log(f"builds {{time.perf_counter() - t0:.1f}} s")
@@ -88,7 +101,8 @@ c.log(f"child done {{time.perf_counter() - t0:.1f}} s")
 '''
 
 # the lines of a child's output that carry the comparison
-KEEP = re.compile(r"^(card:|builds|PAIR|child done|phase[456] (cold|warm)[: ]"
+KEEP = re.compile(r"^(card:|timer:|builds|PAIR|child done"
+                  r"|phase[456] (cold|warm)[: ]"
                   r"|phase[456] .*(device time|realign on the card|"
                   r"profiled:|round)|phase0 (R3|W1)|phase1 (W1|R))")
 
@@ -115,14 +129,15 @@ def databases(cache):
             "ss8k": paths["ss8k"]}, proc
 
 
-def run_child(k, name, tree, parts, bases, log_dir):
-    """One tree's parts in a child process; returns its exit code."""
+def run_child(k, name, tree, parts, bases, log_dir, timer=None):
+    """One tree's parts in a child process, timed with the ``cuda_ms`` of
+    the tree at ``timer`` (by default its own); returns its exit code."""
     log = os.path.join(log_dir, f"tree_pairs-{k}-{name}.log")
     t0 = time.perf_counter()
     with open(log, "w") as f:
         rc = subprocess.run(
             [sys.executable, "-c", CHILD.format(tree=tree, parts=parts,
-                                                bases=bases)],
+                                                bases=bases, timer=timer)],
             cwd=tree, stdout=f, stderr=subprocess.STDOUT).returncode
     with open(log) as f:
         for ln in f:
@@ -141,6 +156,9 @@ def main(argv=None) -> int:
                     help="tree names in turn, e.g. parent,change,change,"
                     "parent")
     ap.add_argument("--parts", default="walk,realign,4,5,6")
+    ap.add_argument("--timer", default=None,
+                    help="NAME: every child times with that tree's "
+                    "chip_smoke.cuda_ms (default: each its own)")
     ap.add_argument("--log-dir", default=os.path.join(
         REPO, "chip_smoke_cache", "tree_pairs"))
     args = ap.parse_args(argv)
@@ -151,6 +169,8 @@ def main(argv=None) -> int:
         return 2
     trees = dict(t.split("=", 1) for t in args.tree)
     trees = {k: os.path.abspath(v) for k, v in trees.items()}
+    if args.timer is not None and args.timer not in trees:
+        ap.error(f"--timer {args.timer}: not a tree")
     order = args.order.split(",")
     parts = args.parts.split(",")
     os.makedirs(args.log_dir, exist_ok=True)
@@ -174,7 +194,7 @@ def main(argv=None) -> int:
             for name in order:
                 k += 1
                 rc |= run_child(k, name, trees[name], sel, bases,
-                                args.log_dir)
+                                args.log_dir, trees.get(args.timer))
     finally:
         if proc is not None:
             proc.kill()

@@ -16,7 +16,8 @@ lane of padding, planted codes 1 and 7 and a short kmax, and at the
 emulation test's planted walks (diagonal, row and column runs, rows and
 columns 1, random codes, a short kmax; ``-k walk``);
 R3 alone at the emulation test's planted posteriors (rows of 1-9
-columns a thread, ties, no open cell; ``-k mac_dp``).
+columns a thread, ties, no open cell; ``-k mac_dp``); R4 alone at its
+planted walks (``chip_smoke.mac_walk_edge_cases``; ``-k mac_walk``).
 Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
@@ -53,8 +54,9 @@ from test_torch_cuda_emulation import (WALK_CASES, WALK_TILE_CASES,
                                        check_walk_payload,
                                        check_walk_tile_payload, walk_case,
                                        walk_tile_case)
-from test_torch_posterior_emulation import (MAC_CASES, check_mac_dp,
-                                            mac_dp_case)
+from test_torch_posterior_emulation import (MAC_CASES, WALK_EDGES,
+                                            check_mac_dp, check_mac_walk,
+                                            mac_dp_case, mac_walk_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -427,3 +429,14 @@ def test_mac_dp_kernel_bit_identical(cuda, case):
     torch.cuda.synchronize()
     assert PB.mac_dp.launches == n + 1
     check_mac_dp(got, x, local, pattern)
+
+
+@pytest.mark.parametrize("case", WALK_EDGES, ids=lambda c: c[0])
+def test_mac_walk_kernel_byte_identical(cuda, case):
+    x = mac_walk_case(case, device=cuda)
+    n = PB.mac_walk_packed8.launches
+    got = PB.mac_walk_packed8(x["b_mac"], x["p_mm"], x["i2"], x["j2"],
+                              x["score"], x["kmax"])
+    torch.cuda.synchronize()
+    assert PB.mac_walk_packed8.launches == n + 1
+    check_mac_walk(got, x, case)

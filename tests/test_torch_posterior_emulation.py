@@ -16,15 +16,26 @@ of 5 in shared memory), 9 (the wide kernels in shared memory) and 47
 every row array forced into the global scratch.  R3 is also held alone,
 bit for bit, at planted posteriors (``MAC_CASES``): rows of 1-9 columns
 a thread, ragged ``t_L`` in global mode, tied maxima, a lane with no
-open cell.  Skips where g++ is missing.
+open cell.  R4 is also held alone, byte for byte, at planted walks
+(``chip_smoke.mac_walk_edge_cases``): diagonals and runs of MI or IM
+across tile borders, row 1 and column 1 on and off a tile's edge, STOP
+and unused codes inside tiles, corner and non-MM starts, a short kmax
+and kmax = 1, a plane smaller than a tile, random codes; with its
+refusals and the marks where the ablation tool edits it.  Skips where
+g++ is missing.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (REALIGN_MACT, REALIGN_SHIFT, realign_edge_shapes,
-                        realign_inputs)
+from chip_smoke import (REALIGN_MACT, REALIGN_SHIFT, mac_walk_check,
+                        mac_walk_edge_cases, mac_walk_inputs, mac_walk_side,
+                        realign_edge_shapes, realign_inputs)
+from hhsuite_tpu_torch.device import CSRC_DIR
 from hhsuite_tpu_torch.ops import posterior_batch as PB
 from test_torch_cuda_emulation import build_emulated
 
@@ -180,3 +191,69 @@ def test_emulated_mac_dp_bit_identical(post_emulated, case):
     got = PB._launch_mac(x["p_mm"], x["co"], REALIGN_MACT, local, x["t_L"])
     assert PB.mac_dp.launches == n0 + 1
     check_mac_dp(got, x, local, pattern)
+
+
+# R4 alone on planted walks (chip_smoke.mac_walk_edge_cases)
+WALK_EDGES = mac_walk_edge_cases()
+
+
+def mac_walk_case(case, device="cpu"):
+    """R4's inputs for one edge case, seeded by its place in the list."""
+    return mac_walk_inputs(case, 70 + WALK_EDGES.index(case), device)
+
+
+def check_mac_walk(got, x, case):
+    """``got`` equals the plain walk byte for byte, with the planted
+    step counts; a kmax shorter than the walks cuts most of them."""
+    assert got.dtype == torch.int8 and mac_walk_check(got, x, case[0]) == 0
+    n = PB.mac_walk_unpack8(got.cpu().numpy(), x["kmax"])[3]
+    if case[4] is not None and case[4] < case[1]:
+        assert (n == x["kmax"]).sum() >= 4
+
+
+@pytest.mark.parametrize("case", WALK_EDGES, ids=lambda c: c[0])
+def test_emulated_mac_walk_byte_identical(post_emulated, case):
+    x = mac_walk_case(case)
+    n0 = PB.mac_walk_packed8.launches
+    got = PB._launch_walk(x["b_mac"], x["p_mm"], x["i2"], x["j2"],
+                          x["score"], x["kmax"])
+    assert PB.mac_walk_packed8.launches == n0 + 1
+    check_mac_walk(got, x, case)
+
+
+def test_emulated_mac_walk_refusals(post_emulated, post_emu_lib):
+    x = mac_walk_case(WALK_EDGES[0])
+    args = (x["b_mac"], x["p_mm"], x["i2"], x["j2"], x["score"])
+    with pytest.raises(ValueError, match="kmax"):
+        PB._launch_walk(*args, 0)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        PB._launch_walk(*(a[:, :, :1] if a.dim() == 3 else a
+                          for a in args), 10)      # Wj = 1
+    # a plane of more than INT_MAX cells, a negative batch
+    for B, Lq, Wj in ((1, 1 << 16, 1 << 15), (-1, 10, 10)):
+        assert post_emu_lib.hh_post_walk(None, None, None, None, None, B, Lq,
+                                         Wj, 10, None, None) != 0
+
+
+def test_walk_mac_ablation_edits_the_walk_at_its_marks():
+    # tools/walk_mac_ablation.py's R4 variants edit mac_walk_kernel at its
+    # "// ablation:" marks (and its signature, launch and __syncwarp for
+    # teams): each mark is there once, and each variant changes the source
+    from hhsuite_tpu_torch.tools import walk_mac_ablation as W
+
+    with open(os.path.join(CSRC_DIR, "posterior.cu")) as f:
+        post = f.read()
+    with open(os.path.join(CSRC_DIR, "viterbi.cu")) as f:
+        vit = f.read()
+    for name in ("lanes", "walker", "gather", "row", "post_store", "codes",
+                 "posts", "tail", "record"):
+        assert len(re.findall(rf"// ablation:{name}$", post, re.M)) == 1
+    side = mac_walk_side(post)
+    out = W.variants(vit, post)
+    r4 = {k: src for k, (lib, src) in out.items() if k.startswith("R4_")}
+    assert r4[f"R4_R{side}_G32"] == post
+    assert all(src != post for k, src in r4.items()
+               if k != f"R4_R{side}_G32")
+    teams = r4[f"R4_R{side}_G16"]
+    assert "__syncwarp()" not in teams.split(" mac_walk_kernel(")[1]
+    assert f"mac_walk_kernel<<<(B + 1) / 2, 32," in teams
