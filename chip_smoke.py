@@ -66,7 +66,26 @@ and no result line:
    8192-template SS database with the family's SS-annotated query, cold
    and warm: as phase 4, with K1, K3 and K6 launched, and whether the
    funnel switched itself off; a profiled warm query, with K3's device
-   time.
+   time;
+7. the scale-out path: (d) one ``hhsearch`` on the 8192-template
+   database and one ``hhblits -n 2`` (``-oa3m``) on the 128 + 16,384-decoy
+   database, unsharded and over a mesh of the card twice (``[cuda:0,
+   cuda:0]``, ``parallel/mesh.py``): the ``.hhr`` and the MSA
+   byte-identical, K1, K2/K3, W1, K4 and K5 launched inside the sharded
+   calls; (e) the same over every card when there are several (else
+   "not run"); (a) the oracle (``tools/gpu_check.run_check``: the
+   ``multi_*`` searches on the card byte-identical to their CPU run,
+   which runs beside (d) and (b)'s normal-entry runs, and within the
+   golden tier of the reference outputs); (b) ``run_batch``
+   (``hhsearch``, default parameters) of the 8192 database's first 8
+   entries at 1 and 2 threads, every ``_hhr`` (Date aside) and ``_m8``
+   entry identical between the runs and to the query's own
+   ``run_hhsearch``; (c) ``hhblits_batch -n 1`` of its first 3 entries
+   against the 2^20-entry database at 1 and 2 threads, the outputs
+   identical; each sub-phase's wall, the batch walls and
+   queries per second beside the card line.  Phases 4 and 5 open their
+   databases through ``search/engine.py:get_database``, so phase 7 finds
+   them warm.
 
 A profiled warm query (phases 4-6) traces the card's activity alone
 (``torch.profiler``, CUDA activities): device time by kernel and the
@@ -1971,7 +1990,8 @@ def phase4_full(base, query_text, counters):
     from hhsuite_tpu_torch.constants import Parameters
     from hhsuite_tpu_torch.search import engine
 
-    db = engine.HHDatabase(base)
+    # (the process cache: phase 7's batches and mesh find it warm)
+    db = engine.get_database(base)
     last = None
     for tag in ("cold", "warm"):
         par = Parameters.hhsearch_defaults()
@@ -2104,7 +2124,7 @@ def phase5_hhblits(base, query_text, counters, dev):
     from hhsuite_tpu_torch.search.query import read_query_text
 
     t0 = time.perf_counter()
-    db = engine.HHDatabase(base)
+    db = engine.get_database(base)    # (warm again in phase 7)
     log(f"phase5 database: {db.size()} entries opened in "
         f"{time.perf_counter() - t0:.2f} s")
     if db.size() != N_ENTRIES_BIG:
@@ -2274,6 +2294,323 @@ def phase6_ss(base, query_text, counters):
     log(f"phase6 K3 device time: {sum(us for us, _n in k3) / 1e3:.2f} ms "
         f"over {sum(n for _us, n in k3)} launches (profiled warm query)")
     return n
+
+
+# ------------------------------------------------------- scale-out ----
+
+# phase 7: queries of the 8192-template database's batch (hhsearch) and
+# of the 2^20-entry database's batch (hhblits -n 1; 3, not 4, to keep the
+# phase near its 180 s)
+N_BATCH_SEARCH, N_BATCH_BLITS = 8, 3
+
+
+def _query_ffindex(src_base, n, out_base):
+    """The first ``n`` entries of ``src_base``'s _a3m ffindex as a query
+    ffindex ``out_base``; returns [(name, text)]."""
+    from hhsuite_tpu_torch.io.ffindex import FFindexDatabase, FFindexWriter
+
+    src = FFindexDatabase(src_base + "_a3m.ffdata", src_base + "_a3m.ffindex")
+    queries = [(e.name, src.read_text(e)) for e in src.entries[:n]]
+    with FFindexWriter(out_base + ".ffdata", out_base + ".ffindex") as w:
+        for name, text in queries:
+            w.add(name, text.encode())
+    return queries
+
+
+def _no_date(text):
+    """An .hhr's text with its Date line emptied (it carries the time of
+    writing)."""
+    import re
+
+    return re.sub(r"(?m)^Date.*$", "", text)
+
+
+def _batch_entries(out_base, kinds):
+    """{kind: {name: text}} of a batch's outputs, the .hhr's Date line
+    emptied."""
+    from hhsuite_tpu_torch.io.ffindex import FFindexDatabase
+
+    out = {}
+    for kind in kinds:
+        db = FFindexDatabase(f"{out_base}_{kind}.ffdata",
+                             f"{out_base}_{kind}.ffindex")
+        out[kind] = {e.name: (_no_date(db.read_text(e)) if kind == "hhr"
+                              else db.read_text(e)) for e in db.entries}
+    return out
+
+
+def _timed_batch(tag, n, run):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"phase7 {tag}: {wall:.3f} s, {n} queries, {n / wall:.3f} queries/s")
+    return wall
+
+
+def phase7b_entry(work, base8k, dev):
+    """The 8192-template database's first 8 entries through the normal
+    entry (run_hhsearch, default parameters), rendered as the batch
+    renders them; returns (query ffindex base, queries, {kind: {name:
+    text}})."""
+    from hhsuite_tpu_torch.constants import Parameters
+    from hhsuite_tpu_torch.io.alignments import print_alignments
+    from hhsuite_tpu_torch.io.results import print_hit_list, print_m8
+    from hhsuite_tpu_torch.matrices import get_substitution_matrix
+    from hhsuite_tpu_torch.search import engine
+
+    qbase = os.path.join(work, "p7_search_queries")
+    queries = _query_ffindex(base8k, N_BATCH_SEARCH, qbase)
+    db = engine.get_database(base8k)
+    entry = {"hhr": {}, "m8": {}}
+    t0 = time.perf_counter()
+    for name, text in queries:
+        par = Parameters.hhsearch_defaults()
+        q, hl = engine.run_hhsearch(par, text, db, name, device=dev)
+        S = get_substitution_matrix(par.matrix).S
+        entry["hhr"][name] = _no_date(print_hit_list(
+            q, hl, par.maxdbstrlen, par.z, par.Z, par.p, par.E,
+            ["hhblits_batch"]) + print_alignments(q, hl, par, S))
+        entry["m8"][name] = print_m8(q, hl, par.nseqdis, par.p, par.E)
+    log(f"phase7 hhsearch, normal entry, one query after another (the "
+        f"oracle's CPU run beside it): {time.perf_counter() - t0:.3f} s, "
+        f"{len(queries)} queries")
+    return qbase, queries, entry
+
+
+def phase7b_search_batch(work, base8k, counters, dev, qbase, queries,
+                         entry):
+    """run_batch (hhsearch, default parameters) of ``queries`` (from
+    :func:`phase7b_entry`) on 1 and 2 threads: every _hhr and _m8 entry
+    byte-identical between the runs and to the normal entry's."""
+    from hhsuite_tpu_torch.tools.batch import run_batch
+
+    walls, outs = {}, {}
+    for threads in (1, 2):
+        out = os.path.join(work, f"p7_search_t{threads}")
+        reset(counters)
+        walls[threads] = _timed_batch(
+            f"hhsearch batch, 8192 templates, {threads} thread(s)",
+            len(queries), lambda: run_batch(qbase, base8k, out, "hhsearch",
+                                            {}, threads, log=log,
+                                            device=dev))
+        n = read(counters)
+        if any(n[k] == 0 for k in ("K1", "W1") + REALIGN_KEYS) \
+                or n["K2"] + n["K3"] == 0:
+            raise AssertionError(f"phase7 hhsearch batch: a kernel of the "
+                                 f"path was not launched: {n}")
+        outs[threads] = _batch_entries(out, ("hhr", "m8"))
+    for kind in ("hhr", "m8"):
+        want = entry[kind]
+        for threads in (1, 2):
+            got = outs[threads][kind]
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"phase7 hhsearch batch {threads} "
+                                     f"thread(s): entries {sorted(got)}")
+            bad = [k for k in want if got[k] != want[k]]
+            if bad:
+                raise AssertionError(f"phase7 hhsearch batch {threads} "
+                                     f"thread(s): _{kind} of {bad} differs "
+                                     "from the normal entry's")
+    log(f"phase7 hhsearch batch: _hhr and _m8 of {len(queries)} queries "
+        "identical at 1 and 2 threads and to the normal entry (Date lines "
+        f"aside); 2 threads / 1 thread wall {walls[2] / walls[1]:.3f}")
+    return walls
+
+
+def phase7c_blits_batch(work, base8k, base_big, counters):
+    """hhblits_batch -n 1 of the 8192 family's first entries against
+    the 2^20-entry database on 2 threads: every output byte-identical
+    to a 1-thread run."""
+    from hhsuite_tpu_torch.cli import main as cli_main
+
+    qbase = os.path.join(work, "p7_blits_queries")
+    queries = _query_ffindex(base8k, N_BATCH_BLITS, qbase)
+    walls, outs = {}, {}
+    for threads in (1, 2):
+        out = os.path.join(work, f"p7_blits_t{threads}")
+
+        def run():
+            if cli_main(["hhblits_batch", "-i", qbase, "-d", base_big, "-o",
+                         out, "-n", "1", "-cpu", str(threads)]) != 0:
+                raise AssertionError("phase7 hhblits_batch failed")
+
+        reset(counters)
+        walls[threads] = _timed_batch(
+            f"hhblits_batch -n 1, 2^20 entries, {threads} thread(s)",
+            len(queries), run)
+        n = read(counters)
+        if any(n[k] == 0 for k in ("K1", "K4", "K5", "W1") + REALIGN_KEYS):
+            raise AssertionError(f"phase7 hhblits batch: a kernel of the "
+                                 f"path was not launched: {n}")
+        outs[threads] = _batch_entries(out, ("hhr", "m8", "a3m"))
+    if outs[1] != outs[2] or len(outs[1]["hhr"]) != len(queries):
+        bad = {k: [n for n in outs[1][k] if outs[1][k][n]
+                   != outs[2][k].get(n)] for k in outs[1]}
+        raise AssertionError(f"phase7 hhblits batch: 2 threads differ from "
+                             f"1: {bad}")
+    log(f"phase7 hhblits batch: _hhr, _m8 and _a3m of {len(queries)} "
+        "queries identical at 1 and 2 threads (Date lines aside); 2 threads "
+        f"/ 1 thread wall {walls[2] / walls[1]:.3f}")
+    return walls
+
+
+def phase7d_mesh(work, base8k, base_small, base_small_d, counters, devices):
+    """One hhsearch on the 8192-template database and one hhblits -n 2
+    (-oa3m) on the 128 + 16,384-decoy database, unsharded and over a mesh
+    of ``devices``: .hhr and -oa3m byte-identical; K1, K2/K3, W1, K4 and
+    K5 must launch inside the sharded calls.  Returns the launches
+    inside the sharded calls."""
+    import torch
+
+    from hhsuite_tpu_torch import profiling
+    from hhsuite_tpu_torch.apps import write_alignment_a3m
+    from hhsuite_tpu_torch.constants import Parameters
+    from hhsuite_tpu_torch.parallel import mesh as M
+    from hhsuite_tpu_torch.search import engine
+    from hhsuite_tpu_torch.search.hhblits import run_hhblits
+
+    with open(base8k + ".query.a3m") as f:
+        q8k = f.read()
+    with open(base_small + ".query.a3m") as f:
+        q_small = f.read()
+    dev = devices[0]
+
+    def search():
+        par = Parameters.hhsearch_defaults()
+        q, hl = engine.run_hhsearch(par, q8k, engine.get_database(base8k),
+                                    "bench_query", device=dev)
+        return _hhr_lines(par, q, hl), None
+
+    def blits():
+        par = Parameters.hhblits_defaults()
+        par.alnfile = os.path.join(work, "p7_unused.a3m")
+        q, hl, qali = run_hhblits(par, q_small,
+                                  engine.get_database(base_small_d),
+                                  "bench_query", device=dev)
+        return _hhr_lines(par, q, hl), write_alignment_a3m(qali)
+
+    inside = {k: 0 for k in counters}
+    real = M.sharded_template_call
+
+    def counted(*a, **kw):
+        before = read(counters)
+        out = real(*a, **kw)
+        for k, v in read(counters).items():
+            inside[k] += v - before[k]
+        return out
+
+    def timed(run):
+        """(output, wall seconds, the run's largest stage timers)"""
+        timers = profiling.enable_stage_timers()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            profiling.disable_stage_timers()
+        top = dict(sorted(((k, round(v, 3)) for k, v in timers.items()
+                           if not k.startswith("funnel_")),
+                          key=lambda kv: -kv[1])[:6])
+        return out, time.perf_counter() - t0, top
+
+    mesh = M.make_mesh(devices)
+    for tag, run in (("hhsearch, 8192 templates", search),
+                     (f"hhblits -n 2, {N_FAMILY_SMALL} + {N_DECOYS_SMALL} "
+                      "decoys", blits)):
+        want, wall1, stages1 = timed(run)
+        reset(counters)
+        M.sharded_template_call = counted
+        try:
+            with M.use_mesh(mesh):
+                got, wall, stages = timed(run)
+        finally:
+            M.sharded_template_call = real
+        n = read(counters)
+        if got != want:
+            diff = [(a, b) for a, b in zip(got[0], want[0]) if a != b][:3]
+            raise AssertionError(f"phase7 mesh {mesh}: {tag} differs from "
+                                 f"the unsharded run: {diff}")
+        log(f"phase7 mesh {mesh}: {tag} {wall:.3f} s (unsharded {wall1:.3f}"
+            f" s), .hhr identical ({len(want[0])} lines)" + (
+                f", -oa3m identical ({want[1].count('>')} sequences)"
+                if want[1] else "") + f"; launches {n}")
+        log(f"phase7 mesh {tag} stages (s): sharded {json.dumps(stages)}, "
+            f"unsharded {json.dumps(stages1)}")
+    log(f"phase7 mesh {mesh}: launches inside the sharded calls {inside}")
+    if any(inside[k] == 0 for k in ("K1", "W1", "K4", "K5")) \
+            or inside["K2"] + inside["K3"] == 0:
+        raise AssertionError(f"phase7 mesh: a kernel did not launch inside "
+                             f"the sharded calls: {inside}")
+    check_walks("phase7 mesh (inside the sharded calls)", inside)
+    return inside
+
+
+def phase7_scale_out(work, bases, counters, dev, card):
+    """The scale-out path: the oracle (both tiers), the hhsearch and
+    hhblits batches at 1 and 2 threads, a mesh of the card twice, and a
+    mesh over every card when there are several.  Returns the launches
+    inside the sharded calls of the mesh of the card twice."""
+    import torch
+
+    from hhsuite_tpu_torch.tools import gpu_check
+
+    base8k, base_big, base_small, base_small_d = bases
+    t0 = time.perf_counter()
+    cpu_oracle = gpu_check.start_cpu_oracle()
+    try:
+        inside = phase7d_mesh(work, base8k, base_small, base_small_d,
+                              counters, [dev, dev])
+        t1 = time.perf_counter()
+        log(f"phase7 (d) mesh of the card twice: {t1 - t0:.1f} s (the "
+            "oracle's CPU run beside it)")
+        entry = phase7b_entry(work, base8k, dev)
+        log(f"phase7 (b) the normal entry's runs: "
+            f"{time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        n_cards = torch.cuda.device_count()
+        if n_cards > 1:
+            phase7d_mesh(work, base8k, base_small, base_small_d, counters,
+                         [torch.device("cuda", k) for k in range(n_cards)])
+            log(f"phase7 (e) mesh over {n_cards} cards: "
+                f"{time.perf_counter() - t1:.1f} s")
+        else:
+            log(f"phase7 (e) mesh over N cards: not run ({n_cards} card)")
+        reset(counters)
+        verdict = gpu_check.run_check(device=dev, cpu_proc=cpu_oracle)
+        n = read(counters)
+    finally:
+        if cpu_oracle.poll() is None:
+            cpu_oracle.kill()
+            cpu_oracle.wait()
+    summary = {k: verdict.get(k) for k in (
+        "pass", "exact_structural_vs_cpu", "n_hits", "n_hits_blits_n2",
+        "m8_problems", "hhr_problems", "blits_n2_problems", "exact_problems",
+        "error")}
+    log(f"phase7 (a) oracle (tools/gpu_check.run_check): "
+        f"{time.perf_counter() - t1:.1f} s after (d) and the normal entry's "
+        f"runs; {json.dumps(summary)}; launches {n}")
+    if not verdict.get("pass") or verdict.get("exact_structural_vs_cpu") \
+            is not True:
+        raise AssertionError("phase7 oracle failed: " + json.dumps(verdict))
+    t1 = time.perf_counter()
+    walls = phase7b_search_batch(work, base8k, counters, dev, *entry)
+    log(f"phase7 (b) hhsearch batches: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    walls_b = phase7c_blits_batch(work, base8k, base_big, counters)
+    log(f"phase7 (c) hhblits batch: {time.perf_counter() - t1:.1f} s")
+    log(f"phase7 batch walls ({card}): hhsearch {N_BATCH_SEARCH} queries "
+        f"{walls[1]:.3f} s at 1 thread, {walls[2]:.3f} s at 2 "
+        f"({N_BATCH_SEARCH / walls[1]:.3f} -> {N_BATCH_SEARCH / walls[2]:.3f}"
+        f" queries/s); hhblits -n 1 {N_BATCH_BLITS} queries {walls_b[1]:.3f} "
+        f"s at 1 thread, {walls_b[2]:.3f} s at 2 "
+        f"({N_BATCH_BLITS / walls_b[1]:.3f} -> "
+        f"{N_BATCH_BLITS / walls_b[2]:.3f} queries/s)")
+    return inside
 
 
 # kernels timed by CUDA events around each launch on a profiled query:
@@ -2655,7 +2992,11 @@ def main() -> int:
         t_phase = phase_ok(5, t_phase)
         with open(base_ss8k + ".query.a3m") as f:
             launches_ss = phase6_ss(base_ss8k, f.read(), counters)
-        phase_ok(6, t_phase)
+        t_phase = phase_ok(6, t_phase)
+        launches_sharded = phase7_scale_out(
+            work, (base8k, base_big, base_small, base_small_d), counters,
+            dev, card)
+        phase_ok(7, t_phase)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2667,7 +3008,8 @@ def main() -> int:
 
     # launches: K1-K3, R1-R4 and W1 on the hhsearch path (phase 4), K4/K5
     # on the hhblits path (phase 5), K6 on the SS hhsearch path (phase 6);
-    # each also with its hhblits and SS counts
+    # each also with its hhblits and SS counts, and its launches inside
+    # the sharded calls of phase 7's mesh of the card twice
     main_path = {"K1": launches, "K2": launches, "K3": launches,
                  "K4": launches_blits, "K5": launches_blits,
                  "K6": launches_ss, "W1": launches}
@@ -2678,6 +3020,7 @@ def main() -> int:
         r["launches"] = main_path[key][key]
         r["launches_hhblits"] = launches_blits[key]
         r["launches_ss"] = launches_ss[key]
+        r["launches_sharded"] = launches_sharded[key]
         kernels.append(r)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

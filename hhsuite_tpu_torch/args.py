@@ -125,6 +125,10 @@ _VALUE_FLAGS = {
     "-pc_prefilter_nocontxt_a": ("pc_prefilter_nocontext_a", _f),
     "-pc_prefilter_nocontxt_b": ("pc_prefilter_nocontext_b", _f),
     "-pc_prefilter_nocontxt_c": ("pc_prefilter_nocontext_c", _f),
+    # shard the template/database axis over the first N cards (default:
+    # every card when there is more than one; N times the CPU when the
+    # search runs on the CPU)
+    "-mesh": ("mesh_devices", _i),
 }
 
 _BOOL_FLAGS = {
@@ -151,7 +155,24 @@ _BOOL_FLAGS = {
     "-allseqs": ("allseqs", True),
     "-realign_old_hits": ("realign_old_hits", True),
     "-append": ("append", 1),
+    "-nomesh": ("mesh_devices", -1),
 }
+
+
+def activate_mesh(par, device=None) -> None:
+    """Install the process-wide device mesh for the search path: -mesh N
+    shards over N devices (:func:`parallel.mesh.make_mesh`), -nomesh
+    turns it off, and by default every visible card is used when there
+    is more than one and the search runs on a card."""
+    from .parallel.mesh import auto_mesh, make_mesh, set_mesh
+
+    n = getattr(par, "mesh_devices", 0)
+    if n == -1:
+        set_mesh(None)
+    elif n > 1:
+        set_mesh(make_mesh(n, device))
+    else:
+        set_mesh(auto_mesh(device))
 
 
 def parse_args(argv: List[str], par: Parameters) -> Parameters:

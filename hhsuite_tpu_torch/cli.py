@@ -6,6 +6,15 @@ Usage:  python -m hhsuite_tpu_torch hhsearch -i q.a3m -d db [-o out.hhr]
         [-blasttab f] [-oa3m f] [-n rounds] [options]
         python -m hhsuite_tpu_torch hhalign -i q.a3m -t t.a3m [-o out.hhr]
         [-oa3m f] [options]
+        python -m hhsuite_tpu_torch hhblits_batch -i queries -d db -o out
+        [-n rounds] [-hhsearch] [-cpu N] [-mesh N] [-queue dir | -shard k/N]
+        [-rank R -size N -addr host:port] [-merge shard1,shard2,..]
+        python -m hhsuite_tpu_torch hhblits_ca3m -i queries -d db -o out ...
+
+``-mesh N`` shards each query's template batches over N cards (every
+card by default when there is more than one; ``-nomesh`` turns it off);
+``hhblits_batch`` searches every entry of an input ffindex
+(``tools/batch.py``), ``hhblits_ca3m`` every entry of a compressed one.
 
 Runs on the CUDA card unless ``HHSUITE_TPU_TORCH_DEVICE=cpu`` asks for
 the CPU (plain PyTorch versions of every kernel).  Output-file wiring
@@ -18,7 +27,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from .args import parse_args
+from .args import activate_mesh, parse_args
 from .constants import Parameters
 
 
@@ -108,6 +117,7 @@ def cmd_hhblits(argv: List[str]) -> int:
               "[-o out.hhr] [-blasttab f] [-oa3m f] [-n rounds] ...",
               file=sys.stderr)
         return 4
+    activate_mesh(par)
     db = open_databases(par.db_bases)
     text = _read_infile(par)
     q, hitlist, qali = run_hhblits(par, text, db, par.infile)
@@ -128,6 +138,7 @@ def cmd_hhsearch(argv: List[str]) -> int:
         print("hhsearch -i <query> -d <db basename> [-o out.hhr] ...",
               file=sys.stderr)
         return 4
+    activate_mesh(par)
     db = open_databases(par.db_bases)
     text = _read_infile(par)
     q, hitlist = run_hhsearch(par, text, db, par.infile)
@@ -161,9 +172,28 @@ def cmd_hhalign(argv: List[str]) -> int:
     return 0
 
 
+def cmd_hhblits_batch(argv: List[str]) -> int:
+    """Many queries: every entry of an input ffindex (hhblits_omp,
+    hhblits_mpi; tools/batch.py)."""
+    from .tools.batch import main as batch_main
+
+    return batch_main(argv)
+
+
+def cmd_hhblits_ca3m(argv: List[str]) -> int:
+    """The batch search over a compressed query database
+    (src/hhblits_ca3m.cpp:120-240): each <in>_ca3m entry is expanded to
+    a3m through <in>_{sequence,header} and searched like hhblits_omp."""
+    from .tools.batch import main as batch_main
+
+    return batch_main(list(argv) + ["-in_ca3m"])
+
+
 COMMANDS = {
     "hhalign": cmd_hhalign,
     "hhblits": cmd_hhblits,
+    "hhblits_batch": cmd_hhblits_batch,
+    "hhblits_ca3m": cmd_hhblits_ca3m,
     "hhsearch": cmd_hhsearch,
 }
 

@@ -234,7 +234,7 @@ class Parameters:
     num_rounds: int = 2
     already_seen_filter: bool = True
     realign_old_hits: bool = False
-    # TPU-native extension: -mesh N / -nomesh (0 = auto)
+    # -mesh N / -nomesh (0 = every card when there is more than one)
     mesh_devices: int = 0
     neffmax: float = 20.0
     threads: int = 2

@@ -34,6 +34,7 @@ binary defaults to CRF context pseudocounts (hhfunc.cpp:221-236).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -321,10 +322,17 @@ class ContextPseudocountsEngine:
                                     par.pc_prefilter_context_b,
                                     par.pc_prefilter_context_c)
         self.pre_target_neff = par.pc_prefilter_context_target_neff
+        # the target-Neff bisection moves its admix's pca in place:
+        # concurrent queries (tools/batch.py's threads) take turns
+        self._lock = threading.Lock()
 
     def _add(self, q, admix, target_neff):
         """HMM::AddContextSpecificPseudocounts + fillCountProfile
         (hhhmm.cpp:1820-1850): counts = f*Neff_M, result into p[1..L]."""
+        with self._lock:
+            self._add_locked(q, admix, target_neff)
+
+    def _add_locked(self, q, admix, target_neff):
         if q.has_pseudocounts:
             q.p[1:q.L + 1, :20] = q.f[1:q.L + 1, :20]
             return

@@ -7,6 +7,8 @@
 * :func:`cuda_library` — compile a ``csrc/*.cu`` source with ``nvcc``
   for ``sm_90a`` into a plain-C shared library under ``build/`` (at
   first use, keyed by the source's content) and load it with ctypes.
+* :func:`on_card` / :func:`launch_on` — a device as the current CUDA
+  device, for a library entry's launch (or a mesh shard's work).
 
 Importing this module turns TF32 off for matmuls and cuDNN, so any f32
 product on the card runs in full f32.
@@ -14,6 +16,7 @@ product on the card runs in full f32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,6 +59,24 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_card(dev):
+    """``torch.cuda.device(dev)`` for a card, a null context for any
+    other device."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def launch_on(dev, entry, *args):
+    """``entry(*args)`` (a ctypes kernel entry) under :func:`on_card`:
+    the library's CUDA runtime launches on the current device, which
+    must be the card that holds the tensors and the stream passed in
+    ``args`` (the CPU builds of the tests' emulation run as they are)."""
+    with on_card(dev):
+        return entry(*args)
 
 
 def nvcc_path() -> str:

@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 from typing import Optional
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -26,6 +27,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 _cached = None
 _tried = False
 _error: Optional[str] = None
+_LOAD_LOCK = threading.Lock()   # one build/load across threads
 
 
 def _cmd(src: str, so: str):
@@ -65,10 +67,18 @@ def build(verbose: bool = False) -> str:
 def load():
     """The compiled module, or None if it cannot be built or loaded
     (see :func:`load_error`)."""
-    global _cached, _tried, _error
+    global _tried
     if _tried:
         return _cached
-    _tried = True
+    with _LOAD_LOCK:
+        if not _tried:
+            _load()
+            _tried = True
+    return _cached
+
+
+def _load() -> None:
+    global _cached, _error
     import importlib.util
 
     try:
@@ -81,7 +91,6 @@ def load():
         _error = f"g++ failed ({e.returncode}): {e.stderr or e.stdout}"
     except (OSError, ImportError) as e:
         _error = f"{type(e).__name__}: {e}"
-    return _cached
 
 
 def load_error() -> Optional[str]:

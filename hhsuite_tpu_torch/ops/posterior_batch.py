@@ -73,6 +73,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import launch_on
+
 FLT_MAX = float(np.finfo(np.float32).max)
 FLT_MIN = float(np.finfo(np.float32).tiny)
 FLUSH = FLT_MIN * 100.0
@@ -722,12 +724,12 @@ def _launch_forward(qp, qtr, tp, ttr, co, cshift, ss_f, ss0, local, t_L,
     scales = torch.empty((B, Lq + 2), dtype=torch.float32, device=dev)
     pfwd = torch.empty(B, dtype=torch.float32, device=dev)
     smem, scratch = _lane_arrays(lib, 0, B, Wj, dev)
-    rc = lib.hh_post_forward(
-        qp.data_ptr(), qtr.data_ptr(), tp.data_ptr(), ttr.data_ptr(),
-        co.data_ptr(), _ptr(ss_f), _ptr(lut), n_lut, _ptr(roff),
-        _ptr(coff), _ptr(ss0), _ptr(tl), B, Lq, Wj, float(cshift),
-        int(bool(local)), _ptr(scratch), smem, fwd.data_ptr(),
-        scales.data_ptr(), pfwd.data_ptr(), _stream(dev))
+    rc = launch_on(dev, lib.hh_post_forward, qp.data_ptr(), qtr.data_ptr(),
+                   tp.data_ptr(), ttr.data_ptr(), co.data_ptr(), _ptr(ss_f),
+                   _ptr(lut), n_lut, _ptr(roff), _ptr(coff), _ptr(ss0),
+                   _ptr(tl), B, Lq, Wj, float(cshift), int(bool(local)),
+                   _ptr(scratch), smem, fwd.data_ptr(), scales.data_ptr(),
+                   pfwd.data_ptr(), _stream(dev))
     _check(lib, rc, "R1 fb_forward")
     fb_forward.launches += 1
     return fwd, scales, pfwd
@@ -745,12 +747,12 @@ def _launch_backward(qp, qtr, tp, ttr, co, cshift, fwd, scales, pfwd, ss_f,
     lib = cuda_lib()
     pmm = torch.empty((B, Lq + 1, Wj), dtype=torch.float32, device=dev)
     smem, scratch = _lane_arrays(lib, 1, B, Wj, dev)
-    rc = lib.hh_post_backward(
-        qp.data_ptr(), qtr.data_ptr(), tp.data_ptr(), ttr.data_ptr(),
-        co.data_ptr(), _ptr(ss_f), _ptr(lut), n_lut, _ptr(roff),
-        _ptr(coff), fwd.data_ptr(), scales.data_ptr(), pfwd.data_ptr(),
-        _ptr(tl), B, Lq, Wj, float(cshift), int(bool(local)),
-        _ptr(scratch), smem, pmm.data_ptr(), _stream(dev))
+    rc = launch_on(dev, lib.hh_post_backward, qp.data_ptr(), qtr.data_ptr(),
+                   tp.data_ptr(), ttr.data_ptr(), co.data_ptr(), _ptr(ss_f),
+                   _ptr(lut), n_lut, _ptr(roff), _ptr(coff), fwd.data_ptr(),
+                   scales.data_ptr(), pfwd.data_ptr(), _ptr(tl), B, Lq, Wj,
+                   float(cshift), int(bool(local)), _ptr(scratch), smem,
+                   pmm.data_ptr(), _stream(dev))
     _check(lib, rc, "R2 fb_backward")
     fb_backward.launches += 1
     return pmm
@@ -770,10 +772,10 @@ def _launch_mac(p_mm, co, mact, local, t_L):
     i2 = torch.empty(B, dtype=torch.int32, device=dev)
     j2 = torch.empty(B, dtype=torch.int32, device=dev)
     smem, scratch = _lane_arrays(lib, 2, B, Wj, dev)
-    rc = lib.hh_post_mac(
-        p_mm.data_ptr(), co.data_ptr(), _ptr(tl), B, Li - 1, Wj,
-        float(np.float32(mact)), int(bool(local)), _ptr(scratch), smem,
-        b_mac.data_ptr(), i2.data_ptr(), j2.data_ptr(), _stream(dev))
+    rc = launch_on(dev, lib.hh_post_mac, p_mm.data_ptr(), co.data_ptr(),
+                   _ptr(tl), B, Li - 1, Wj, float(np.float32(mact)),
+                   int(bool(local)), _ptr(scratch), smem, b_mac.data_ptr(),
+                   i2.data_ptr(), j2.data_ptr(), _stream(dev))
     _check(lib, rc, "R3 mac_dp")
     mac_dp.launches += 1
     return b_mac, i2, j2
@@ -791,9 +793,9 @@ def _launch_walk(b_mac, p_mm, i2, j2, score, kmax):
     score = _f32(torch.as_tensor(score).to(dev), dev, (B,), "score")
     lib = cuda_lib()
     out = torch.empty((B, 12 + 5 * kmax), dtype=torch.int8, device=dev)
-    rc = lib.hh_post_walk(b_mac.data_ptr(), p_mm.data_ptr(), i2.data_ptr(),
-                          j2.data_ptr(), score.data_ptr(), B, Li - 1, Wj,
-                          int(kmax), out.data_ptr(), _stream(dev))
+    rc = launch_on(dev, lib.hh_post_walk, b_mac.data_ptr(), p_mm.data_ptr(),
+                   i2.data_ptr(), j2.data_ptr(), score.data_ptr(), B, Li - 1,
+                   Wj, int(kmax), out.data_ptr(), _stream(dev))
     _check(lib, rc, "R4 mac_walk_packed8")
     mac_walk_packed8.launches += 1
     return out

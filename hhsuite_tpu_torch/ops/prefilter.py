@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..device import launch_on
 from .viterbi_lanes import WaveGeometry, _wave_geometry
 
 NS = 220          # AS219 states + ANY (the padding state)
@@ -256,7 +257,7 @@ def _launch(entry, what, counter, qc, states, offsets, lengths, *args):
     nbytes = lib.hh_pf_scratch_bytes(Lq, geo.G, states.numel())
     scratch = (torch.empty(nbytes // 2, dtype=torch.int16, device=dev)
                if nbytes > 0 else None)
-    rc = getattr(lib, entry)(
+    rc = launch_on(dev, getattr(lib, entry),
         table.data_ptr(), Lq, states.data_ptr(), offsets.data_ptr(),
         lengths.data_ptr(), B, *(int(a) for a in args), geo.G,
         None if scratch is None else scratch.data_ptr(), out.data_ptr(),

@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import launch_on
 from ..fastmath import log2f4_torch, scalar_prod20_torch
 
 FLT_MAX = float(np.finfo(np.float32).max)
@@ -392,9 +393,9 @@ def launch_walk(bt, i2, j2, score, kmax: int):
     if B == 0:
         return out
     lib = VL.cuda_lib()
-    rc = lib.hh_vit_walk(bt.data_ptr(), *bt.stride(), i2.data_ptr(),
-                         j2.data_ptr(), score.data_ptr(), B, int(kmax),
-                         out.data_ptr(), VL._stream(dev))
+    rc = launch_on(dev, lib.hh_vit_walk, bt.data_ptr(), *bt.stride(),
+                   i2.data_ptr(), j2.data_ptr(), score.data_ptr(), B,
+                   int(kmax), out.data_ptr(), VL._stream(dev))
     VL._check(lib, rc, "W1 backtrace walk")
     backtrace_walk_packed8.launches += 1
     return out

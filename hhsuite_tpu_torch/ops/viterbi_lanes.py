@@ -55,6 +55,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import launch_on
 from .viterbi import (D2D, D2M, FLT_MAX, I2I, I2M, M2D, M2I, M2M, _diag_index,
                       _up, bt_base, bt_storage, diag_si, fmax, viterbi_batch)
 
@@ -155,11 +156,10 @@ def launch_score(qp, qtr, tp, ttr, sh, fast, what, ss=None, lut=None,
                if geo.passes > 1 else None)
     out = torch.empty(B, dtype=f32, device=dev)
     n_lut = 0 if lut is None else int(lut.numel())
-    rc = lib.hh_vit_score(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT),
-                          _ptr(ss), _ptr(lut), n_lut, _ptr(qidx),
-                          _ptr(tidxT), B, Lq, Lt, float(np.float32(sh)),
-                          int(fast), geo.G, _ptr(scratch), _ptr(out),
-                          _stream(dev))
+    rc = launch_on(dev, lib.hh_vit_score, _ptr(qp_c), _ptr(qtr_c), _ptr(tpT),
+                   _ptr(ttrT), _ptr(ss), _ptr(lut), n_lut, _ptr(qidx),
+                   _ptr(tidxT), B, Lq, Lt, float(np.float32(sh)), int(fast),
+                   geo.G, _ptr(scratch), _ptr(out), _stream(dev))
     _check(lib, rc, what)
     return out
 
@@ -457,14 +457,14 @@ def launch_bt(qp, qtr, tp, ttr, t_L, cell_off, shift, local, Lq_true,
     bt_s, bt = bt_storage(B, Lq, Lt, torch.uint8, dev)
     lqt = Lq if Lq_true is None else int(Lq_true)
     n_lut = 0 if lut is None else int(lut.numel())
-    rc = lib.hh_vit_bt(_ptr(qp_c), _ptr(qtr_c), _ptr(tpT), _ptr(ttrT),
-                       _ptr(tL), _ptr(co), _ptr(lut), n_lut, _ptr(qidx),
-                       _ptr(tidxT), B, Lq, Lt, lqt, int(bool(local)),
-                       float(np.float32(shift)),
-                       float(np.float32(penalty_gap_query)),
-                       float(np.float32(penalty_gap_template)),
-                       geo.G, _ptr(scratch), _ptr(score), _ptr(i2),
-                       _ptr(j2), _ptr(bt_s), _stream(dev))
+    rc = launch_on(dev, lib.hh_vit_bt, _ptr(qp_c), _ptr(qtr_c), _ptr(tpT),
+                   _ptr(ttrT), _ptr(tL), _ptr(co), _ptr(lut), n_lut,
+                   _ptr(qidx), _ptr(tidxT), B, Lq, Lt, lqt, int(bool(local)),
+                   float(np.float32(shift)),
+                   float(np.float32(penalty_gap_query)),
+                   float(np.float32(penalty_gap_template)), geo.G,
+                   _ptr(scratch), _ptr(score), _ptr(i2), _ptr(j2), _ptr(bt_s),
+                   _stream(dev))
     _check(lib, rc, "Viterbi backtrace kernel")
     return score, i2, j2, bt
 

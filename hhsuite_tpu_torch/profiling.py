@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import threading
 import time
 
 import torch
@@ -66,20 +67,36 @@ def annotate(name: str):
                             + time.perf_counter() - t0)
 
 
+# gc_paused nesting across threads: the collector is process-wide, so
+# concurrent searches (tools/batch.py's worker threads) count their
+# pauses under one lock; the first entry disables it, the last exit
+# restores what the first entry found
+_GC_LOCK = threading.Lock()
+_GC_DEPTH = 0
+_GC_RESTORE = False
+
+
 @contextlib.contextmanager
 def gc_paused():
     """Pause the cyclic garbage collector for a search's hot loop (a
     query allocates ~15k Hit objects plus numpy views; generational GC
-    otherwise fires mid-search).  Re-entrant and exception-safe, and a
-    no-op if the collector was already disabled by the caller."""
-    was_enabled = gc.isenabled()
-    if was_enabled:
-        gc.disable()
+    otherwise fires mid-search).  Re-entrant, safe across threads and
+    exceptions: the collector stays off until the last open pause of
+    any thread closes, and is re-enabled only if it was on when the
+    first one opened."""
+    global _GC_DEPTH, _GC_RESTORE
+    with _GC_LOCK:
+        if _GC_DEPTH == 0:
+            _GC_RESTORE = gc.isenabled()
+            gc.disable()
+        _GC_DEPTH += 1
     try:
         yield
     finally:
-        if was_enabled:
-            gc.enable()
+        with _GC_LOCK:
+            _GC_DEPTH -= 1
+            if _GC_DEPTH == 0 and _GC_RESTORE:
+                gc.enable()
 
 
 def gc_paused_fn(fn):

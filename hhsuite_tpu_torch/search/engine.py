@@ -14,6 +14,7 @@ PosteriorDecoderRunner grouping (src/hhposteriordecoderrunner.cpp:43-119).
 from __future__ import annotations
 
 import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,6 +35,31 @@ from .posterior import (MACBacktraceResult, PosteriorDecoder,
 from .query import (finish_template_hmm, prepare_query_hmm,
                     prepare_template_hmm, read_query_text)
 from .viterbi_search import promote_light_hits, viterbi_search
+
+
+_DB_CACHE: Dict[str, "HHDatabase"] = {}
+_DB_CACHE_LOCK = threading.Lock()
+
+
+def get_database(base: str) -> "HHDatabase":
+    """Process-level HHDatabase cache: the batch search and long-lived
+    servers reuse one instance per base path, so the parsed templates
+    and the resident template and cs219 packs stay warm across queries
+    (the reference's hhblits_omp keeps its database open for the whole
+    run, src/hhblits_omp.cpp:96-120).  The instance's caches grow under
+    its :func:`db_lock` over immutable files, so worker threads share
+    it."""
+    with _DB_CACHE_LOCK:
+        db = _DB_CACHE.get(base)
+        if db is None:
+            db = _DB_CACHE[base] = HHDatabase(base)
+        return db
+
+
+def db_lock(db) -> threading.RLock:
+    """The lock that guards ``db``'s shared device caches (the resident
+    template packs, the cs219 packs) against concurrent queries."""
+    return db.__dict__.setdefault("_lock", threading.RLock())
 
 
 def _fast_copy_hmm(t: HMM) -> HMM:
@@ -98,15 +124,16 @@ class HHDatabase:
     # target hosts' RAM.
     _HMM_CACHE_MAX = 40000
 
+    # (concurrent queries share the cache: a dict's get and set are
+    # atomic, two threads that parse one entry at once put equal
+    # values, and every hand-out is a per-call copy)
     def _hmm_cache_get(self, key):
-        cache = getattr(self, "_hmm_cache", None)
-        if cache is None:
-            cache = self._hmm_cache = {}
-        return cache.get(key)
+        return self.__dict__.setdefault("_hmm_cache", {}).get(key)
 
     def _hmm_cache_put(self, key, value):
-        if len(self._hmm_cache) < self._HMM_CACHE_MAX:
-            self._hmm_cache[key] = value
+        cache = self.__dict__.setdefault("_hmm_cache", {})
+        if len(cache) < self._HMM_CACHE_MAX:
+            cache[key] = value
 
     def _parse_cache_key(self, name: str, par: Parameters,
                          use_global_weights: int):
@@ -271,7 +298,14 @@ def get_resident_pack(db, names: List[str], par: Parameters,
     incrementally extended with ``names`` (see
     viterbi_search.ResidentTemplatePack).  Rows hold the
     PRE-null-division prepared templates from the parse cache, so the
-    pack is query-independent and survives across queries."""
+    pack is query-independent and survives across queries.
+
+    Concurrent queries share it: the lookup, the budget check and the
+    growth run under the database's :func:`db_lock` and the pack's own
+    lock.  Under a device mesh the pack stays: each batch is gathered
+    from it on ``device`` and its lanes are sharded from there (the
+    JAX package packs per batch under a mesh instead; keeping the pack
+    keeps the kernel and the query view the single-device path uses)."""
     from .viterbi_search import ResidentTemplatePack
 
     dev = resolve_device(device)
@@ -283,46 +317,49 @@ def get_resident_pack(db, names: List[str], par: Parameters,
            par.gapf, par.gapg, par.gaph, par.gapi,
            par.pc_hhm_nocontext_mode, par.pc_hhm_nocontext_a,
            par.pc_hhm_nocontext_b, par.pc_hhm_nocontext_c)
-    packs = db.__dict__.setdefault("_resident_packs", {})
-    pack = packs.get(key)
-    if pack is None:
-        pack = packs[key] = ResidentTemplatePack(dev)
-    items = []
+    with db_lock(db):
+        packs = db.__dict__.setdefault("_resident_packs", {})
+        pack = packs.get(key)
+        if pack is None:
+            pack = packs[key] = ResidentTemplatePack(dev)
     budget = PACK_BUDGET_GB
     import time as _time
 
     from ..profiling import stage_add
-    _t0 = _time.perf_counter()
-    for name in names:
-        if name not in pack.row_of:
-            t, _fmt = db._prepared_cache_entry(name, par, mats,
-                                               use_global_weights)
-            items.append((name, t))
-    stage_add("host_template_parse", _time.perf_counter() - _t0)
-    # device-memory budget: on very large databases (hundreds of
-    # thousands of templates) a fully-resident pack would exceed device
-    # memory; past the budget the search falls back to per-batch host
-    # packing (slower, unbounded DB size).  The estimate mirrors ensure()'s
-    # real allocation (pow2 capacity x length buckets), and the
-    # PACK_DISABLED sentinel stops viterbi_search from building its
-    # local fallback pack with the same templates.
-    est = pack.projected_bytes(items)
-    if est > budget * 1e9:
-        from .viterbi_search import PACK_DISABLED
+    with pack.lock:
+        items = []
+        _t0 = _time.perf_counter()
+        for name in names:
+            if name not in pack.row_of:
+                t, _fmt = db._prepared_cache_entry(name, par, mats,
+                                                   use_global_weights)
+                items.append((name, t))
+        stage_add("host_template_parse", _time.perf_counter() - _t0)
+        # device-memory budget: on very large databases (hundreds of
+        # thousands of templates) a fully-resident pack would exceed
+        # device memory; past the budget the search falls back to
+        # per-batch host packing (slower, unbounded DB size).  The
+        # estimate mirrors ensure()'s real allocation (pow2 capacity x
+        # length buckets), and the PACK_DISABLED sentinel stops
+        # viterbi_search from building its local fallback pack with the
+        # same templates.
+        est = pack.projected_bytes(items)
+        if est > budget * 1e9:
+            from .viterbi_search import PACK_DISABLED
 
-        from .. import log as hhlog
-        if not db.__dict__.get("_pack_budget_warned"):
-            db.__dict__["_pack_budget_warned"] = True
-            hhlog.warning(
-                f"template pack would need ~{est / 1e9:.1f} GB device "
-                f"memory (> {budget:g} GB); using per-batch template "
-                f"upload instead")
-        return PACK_DISABLED
-    if items:
-        from ..profiling import annotate
+            from .. import log as hhlog
+            if not db.__dict__.get("_pack_budget_warned"):
+                db.__dict__["_pack_budget_warned"] = True
+                hhlog.warning(
+                    f"template pack would need ~{est / 1e9:.1f} GB device "
+                    f"memory (> {budget:g} GB); using per-batch template "
+                    f"upload instead")
+            return PACK_DISABLED
+        if items:
+            from ..profiling import annotate
 
-        with annotate("template_pack_upload"):
-            pack.ensure(items)
+            with annotate("template_pack_upload"):
+                pack.ensure(items)
     return pack
 
 

@@ -11,7 +11,9 @@ The database's cs219 states live on the device in a
 reused across rounds and queries.  Stage 1 scores every row of it (K4);
 stage 2 scores the stage-1 survivors only (K5), selected on the device
 by their row descriptors.  On CPU tensors both stages run the plain
-PyTorch versions.
+PyTorch versions.  Under a device mesh (``parallel/mesh.py``) the rows
+of each stage are split over the mesh's devices, each reading its own
+copy of the pack's states.
 """
 
 from __future__ import annotations
@@ -102,26 +104,48 @@ class ResidentCs219Pack:
                                             ).to(self.device)
         self.nbytes = sum(t.numel() * t.element_size() for t in
                           (self.states, self.offsets, self.row_lengths))
+        self._states_on = {self.device: self.states}
 
     def __len__(self) -> int:
         return len(self.order)
+
+    def states_on(self, device) -> torch.Tensor:
+        """The states on ``device``: this pack's own, or a copy made at
+        the first call for that device and kept (a mesh's other cards
+        each read their own copy)."""
+        dev = torch.device(device)
+        st = self._states_on.get(dev)
+        if st is None:
+            st = self._states_on.setdefault(dev, self.states.to(dev))
+        return st
 
     def scores(self, kernel, qc: torch.Tensor, subset: Optional[np.ndarray],
                *args) -> np.ndarray:
         """``kernel`` (K4/K5 resident entry) over every row, or over the
         database indices ``subset``; (N,) int32 in database order, or in
-        ``subset`` order."""
+        ``subset`` order.  Under a device mesh the rows are sharded over
+        its devices (:func:`parallel.mesh.sharded_prefilter_scores`)."""
         if subset is None:
-            out = kernel(qc, self.states, self.offsets, self.row_lengths,
-                         *args).cpu().numpy()
+            out = self._run(kernel, qc, self.offsets, self.row_lengths,
+                            args)
             res = np.empty_like(out)
             res[self.order] = out
             return res
         rows = np.sort(self.row_of[np.asarray(subset, np.int64)])
         rows_d = torch.from_numpy(rows).to(self.device)
-        out = kernel(qc, self.states, self.offsets[rows_d],
-                     self.row_lengths[rows_d], *args).cpu().numpy()
+        out = self._run(kernel, qc, self.offsets[rows_d],
+                        self.row_lengths[rows_d], args)
         return out[np.searchsorted(rows, self.row_of[subset])]
+
+    def _run(self, kernel, qc, offsets, lengths, args) -> np.ndarray:
+        from ..parallel.mesh import get_mesh, sharded_prefilter_scores
+
+        if get_mesh() is not None:
+            out = sharded_prefilter_scores(kernel, qc, self, offsets,
+                                           lengths, *args)
+        else:
+            out = kernel(qc, self.states, offsets, lengths, *args)
+        return out.cpu().numpy()
 
 
 def to_device_cs219(seqs: List[bytes], device) -> ResidentCs219Pack:
@@ -133,17 +157,23 @@ def to_device_cs219(seqs: List[bytes], device) -> ResidentCs219Pack:
 def database_cs219(db, device):
     """(names, seqs, pack) of ``db``'s cs219 entries, read once and
     uploaded once per device, cached on the database object — an
-    HHDatabase or a MultiHHDatabase alike."""
+    HHDatabase or a MultiHHDatabase alike.  Concurrent queries share the
+    cache: it is filled under the database's lock."""
+    from .engine import db_lock
+
     dev = resolve_device(device)
-    cache = db.__dict__.setdefault("_cs219", {})
-    if "seqs" not in cache:
-        cache["names"] = [e.name for e in db.cs219.entries]
-        cache["seqs"] = [db.cs219.read_bytes(e) for e in db.cs219.entries]
-    pack = cache.get(str(dev))
-    if pack is None:
-        with annotate("cs219_pack_upload"):
-            pack = cache[str(dev)] = ResidentCs219Pack(cache["seqs"], dev)
-    return cache["names"], cache["seqs"], pack
+    with db_lock(db):
+        cache = db.__dict__.setdefault("_cs219", {})
+        if "seqs" not in cache:
+            cache["names"] = [e.name for e in db.cs219.entries]
+            cache["seqs"] = [db.cs219.read_bytes(e)
+                             for e in db.cs219.entries]
+        pack = cache.get(str(dev))
+        if pack is None:
+            with annotate("cs219_pack_upload"):
+                pack = cache[str(dev)] = ResidentCs219Pack(cache["seqs"],
+                                                           dev)
+        return cache["names"], cache["seqs"], pack
 
 
 def prefilter_db(par: Parameters, q_tmp: HMM, lib: ContextLibrary,

@@ -18,11 +18,16 @@ the DP, global mode, long queries) and W1 ``backtrace_walk_packed8``
 (the walk of each K2/K3 batch into its payload; a junk's payloads are
 copied to the host after its last batch).  On the CPU every wrapper
 runs its plain PyTorch version, so one code path serves both devices.
+Under a device mesh (``parallel/mesh.py``) each sweep chunk and each
+backtrace batch is split over the mesh's devices, every shard running
+:func:`sweep_batch` or :func:`backtrace_batch` as the unsharded call
+does.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time as _time
 from typing import Dict, List, Optional, Tuple
 
@@ -39,6 +44,8 @@ from ..ops.viterbi_lanes import (viterbi_backtrace_lanes,
                                  viterbi_score_lanes,
                                  viterbi_score_lanes_fused)
 from ..ops.viterbi_rows import viterbi_batch_rows
+from ..parallel.mesh import (get_mesh, sharded_lanes_scores,
+                             sharded_viterbi_backtrace)
 from ..profiling import annotate, stage_add
 
 FLT_MAX = float(np.finfo(np.float32).max)
@@ -349,6 +356,11 @@ class ResidentTemplatePack:
 
     Capacity grows by doubling (one spare row past ``used`` is the
     all-padding row that fills partial batches).
+
+    One pack serves the concurrent queries of a batch run
+    (tools/batch.py's worker threads): :meth:`ensure`, :meth:`gather`
+    and :meth:`projected_bytes` hold ``lock``, so no thread grows or
+    reallocates a bucket while another reads it.
     """
 
     def __init__(self, device, bucket: int = 128):
@@ -357,6 +369,7 @@ class ResidentTemplatePack:
         self.row_of: Dict[str, Tuple[int, int]] = {}   # name -> (b,row)
         self.buckets: Dict[int, dict] = {}
         self.approx_bytes = 0      # device-resident footprint estimate
+        self.lock = threading.RLock()
 
     def _bucket_for(self, L: int) -> int:
         b = self.bucket_size
@@ -366,6 +379,10 @@ class ResidentTemplatePack:
         """Upload any templates not yet resident.  ``items`` are
         (name, PRE-division HMM) — e.g. the parsed-HMM cache entries
         from get_template_hmm_prepared, read-only."""
+        with self.lock:
+            self._ensure(items)
+
+    def _ensure(self, items: List[Tuple[str, HMM]]):
         new_by_bucket: Dict[int, List[Tuple[str, HMM]]] = {}
         for name, t in items:
             if name not in self.row_of:
@@ -405,6 +422,10 @@ class ResidentTemplatePack:
     def projected_bytes(self, items: List[Tuple[str, HMM]]) -> int:
         """Device footprint AFTER ensure(items) would run, mirroring
         its bucket/pow2-capacity allocation math."""
+        with self.lock:
+            return self._projected_bytes(items)
+
+    def _projected_bytes(self, items: List[Tuple[str, HMM]]) -> int:
         new_per_bucket: Dict[int, int] = {}
         for name, t in items:
             if name not in self.row_of:
@@ -427,15 +448,53 @@ class ResidentTemplatePack:
         by the per-lane null model ``pnul`` (Bp, 20): (tp, ttr, t_L) in
         the JAX shapes, tp/ttr as views of lanes-last storage.  Lanes
         past ``names`` read the null (all-padding) row."""
-        bk = self.buckets[Lt_pad]
-        idx = np.full(Bp, bk["cap"] - 1, dtype=np.int64)
-        for k, name in enumerate(names):
-            idx[k] = self.row_of[name][1]
+        with self.lock:
+            bk = self.buckets[Lt_pad]
+            idx = np.full(Bp, bk["cap"] - 1, dtype=np.int64)
+            for k, name in enumerate(names):
+                idx[k] = self.row_of[name][1]
+            tp, ttr, t_L = bk["tp"], bk["ttr"], bk["t_L"]
         idx_d = torch.from_numpy(idx).to(self.device)
         pn = torch.from_numpy(np.ascontiguousarray(pnul.T)).to(self.device)
-        tpT = bk["tp"].permute(1, 2, 0)[:, :, idx_d] / pn[None]
-        ttrT = bk["ttr"].permute(1, 2, 0)[:, :, idx_d]
-        return tpT.permute(2, 0, 1), ttrT.permute(2, 0, 1), bk["t_L"][idx_d]
+        tpT = tp.permute(1, 2, 0)[:, :, idx_d] / pn[None]
+        ttrT = ttr.permute(1, 2, 0)[:, :, idx_d]
+        return tpT.permute(2, 0, 1), ttrT.permute(2, 0, 1), t_L[idx_d]
+
+
+def backtrace_batch(qp, qtr, tp, ttr, t_L, shift, kmax: int, hot: bool,
+                    cell_off=None, ss_kw=None, local: bool = True,
+                    Lq_true=None, egq: float = 0.0, egt: float = 0.0
+                    ) -> torch.Tensor:
+    """One batch of the backtrace pass on the tensors' device: K2
+    (``hot``: a gathered pack batch, local, no cell-off, no SS, Lq <=
+    512) or K3 (any other), then the walk W1 of its bt; returns the
+    (B, 12 + kmax) walk payload.  The single-device pass and every
+    shard of :func:`parallel.mesh.sharded_viterbi_backtrace` run this."""
+    if hot:
+        score, i2, j2, bt = viterbi_backtrace_lanes(
+            qp, qtr, tp, ttr, t_L, shift, Lq_true=Lq_true)
+    else:
+        score, i2, j2, bt = viterbi_batch_rows(
+            qp, qtr, tp, ttr, cell_off, t_L, shift, local=local,
+            Lq_true=Lq_true, penalty_gap_query=egq,
+            penalty_gap_template=egt, **(ss_kw or {}))
+    return V.backtrace_walk_packed8(bt, i2, j2, score, kmax=kmax)
+
+
+def sweep_batch(qp, qtr, tp, ttr, t_L, shift, impl: str, ss_kw=None
+                ) -> torch.Tensor:
+    """One chunk of the funnel's score-only sweep on the tensors'
+    device: K6 with the SS table ``ss_kw`` when SS enters the DP, else
+    the ``impl`` kernel (:func:`_lanes_impl`: K1 fast or exact, K6
+    without SS); returns the (B,) scores.  The single-device sweep and
+    every shard of :func:`parallel.mesh.sharded_lanes_scores` run
+    this."""
+    if ss_kw or impl == "split":
+        return viterbi_score_lanes(qp, qtr, tp, ttr, t_L, shift,
+                                   **(ss_kw or {}))
+    return viterbi_score_lanes_fused(
+        qp, qtr, tp, ttr, t_L, shift,
+        si_mode="fast" if impl == "fused" else "exact")
 
 
 def _payload(packed: torch.Tensor) -> np.ndarray:
@@ -651,27 +710,26 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                              ss_qidx=_host_to(qidx, dev),
                              ss_tidx=_host_to(tidx, dev))
 
+            # hot path: K2 over the gathered batch; else K3 (altali
+            # exclusion masks, SS in the DP, global mode, long queries,
+            # per-batch packing)
+            hot = (bucket_lt is not None and cell_off is None
+                   and not ss_kw and bool(par.loc) and Lq <= 512)
+            bt_kw = dict(cell_off=cell_off, ss_kw=ss_kw,
+                         local=bool(par.loc), Lq_true=q.L, egq=par.egq,
+                         egt=par.egt)
             with annotate("viterbi_backtrace_pass"):
-                if (bucket_lt is not None and cell_off is None
-                        and not ss_kw and bool(par.loc)
-                        and Lq <= 512):
-                    # hot path: K2 over the gathered batch
-                    score, i2, j2, bt = viterbi_backtrace_lanes(
-                        qp_k, qtr_k, tp, ttr, t_L, shift, Lq_true=q.L)
+                # the batch's kernel and the walk W1 of its bt: only an
+                # int8 state string + header per lane reaches the host,
+                # after the junk's last batch
+                if get_mesh() is not None:
+                    packed = sharded_viterbi_backtrace(
+                        qp_k, qtr_k, tp, ttr, t_L, shift, kmax, hot,
+                        **bt_kw)
                 else:
-                    # K3: altali exclusion masks, SS in the DP, global
-                    # mode, long queries, per-batch packing
-                    score, i2, j2, bt = viterbi_batch_rows(
-                        qp_k, qtr_k, tp, ttr, cell_off, t_L, shift,
-                        local=bool(par.loc), Lq_true=q.L,
-                        penalty_gap_query=par.egq,
-                        penalty_gap_template=par.egt, **ss_kw)
-                # walk the backtrace on the device (W1): only an int8
-                # state string + header per lane reaches the host, after
-                # the junk's last batch
-                packed = V.backtrace_walk_packed8(bt, i2, j2, score,
-                                                  kmax=kmax)
-                del bt, cell_off
+                    packed = backtrace_batch(qp_k, qtr_k, tp, ttr, t_L,
+                                             shift, kmax, hot, **bt_kw)
+                del cell_off, bt_kw
             pending.append((idxs, batch, ss_hmm_mode, packed, kmax))
         # one wait for the whole junk: the payloads come to the host once
         # every batch has been launched
@@ -869,24 +927,23 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
             ss_hmm_mode = compute_ss_hmm_mode(q, batch) \
                 if par.ssm == 2 else NO_SS_INFORMATION
             with annotate("viterbi_lanes_sweep"):
-                if ss_hmm_mode != NO_SS_INFORMATION or impl == "split":
-                    ss = {}
-                    if ss_hmm_mode != NO_SS_INFORMATION:
-                        # SS queries are never Lq-bucketed (qp_d is q's
-                        # own profile)
-                        lut, qidx, tidx = build_ss_lut(
-                            q, batch, ss_hmm_mode, par.ssw, S73, S37, S33,
-                            Lt_max)
-                        tidx = np.pad(tidx, ((0, Bp - nb), (0, 0)))
-                        ss = dict(ss_lut=_host_to(lut, dev),
-                                  ss_qidx=_host_to(qidx, dev),
-                                  ss_tidx=_host_to(tidx, dev))
-                    sc = viterbi_score_lanes(qp_d, qtr_d, tp, ttr, t_L,
-                                             shift, **ss)
+                ss = {}
+                if ss_hmm_mode != NO_SS_INFORMATION:
+                    # SS queries are never Lq-bucketed (qp_d is q's own
+                    # profile)
+                    lut, qidx, tidx = build_ss_lut(
+                        q, batch, ss_hmm_mode, par.ssw, S73, S37, S33,
+                        Lt_max)
+                    tidx = np.pad(tidx, ((0, Bp - nb), (0, 0)))
+                    ss = dict(ss_lut=_host_to(lut, dev),
+                              ss_qidx=_host_to(qidx, dev),
+                              ss_tidx=_host_to(tidx, dev))
+                if get_mesh() is not None:
+                    sc = sharded_lanes_scores(qp_d, qtr_d, tp, ttr, t_L,
+                                              shift, impl, ss)
                 else:
-                    sc = viterbi_score_lanes_fused(
-                        qp_d, qtr_d, tp, ttr, t_L, shift,
-                        si_mode="fast" if impl == "fused" else "exact")
+                    sc = sweep_batch(qp_d, qtr_d, tp, ttr, t_L, shift,
+                                     impl, ss)
                 scores[np.asarray(positions, dtype=np.int64)] = \
                     sc[:nb].cpu().numpy()
         return scores

@@ -17,7 +17,11 @@ emulation test's planted walks (diagonal, row and column runs, rows and
 columns 1, random codes, a short kmax; ``-k walk``);
 R3 alone at the emulation test's planted posteriors (rows of 1-9
 columns a thread, ties, no open cell; ``-k mac_dp``); R4 alone at its
-planted walks (``chip_smoke.mac_walk_edge_cases``; ``-k mac_walk``).
+planted walks (``chip_smoke.mac_walk_edge_cases``; ``-k mac_walk``);
+the sharded calls of ``parallel/mesh.py`` over a mesh of the card twice
+(``[cuda:0, cuda:0]``): the sweep, the backtrace pass with its walk and
+the prefilter stages bit-, byte- and int-identical to the unsharded
+calls, one launch a shard (``-k mesh``).
 Needs a CUDA card;
 elsewhere every test skips.  On a
 machine with a card:
@@ -440,3 +444,97 @@ def test_mac_walk_kernel_byte_identical(cuda, case):
     torch.cuda.synchronize()
     assert PB.mac_walk_packed8.launches == n + 1
     check_mac_walk(got, x, case)
+
+
+# --------------------------------------------- a mesh of one card twice ----
+
+def _launches():
+    return {k: fn.launches for k, fn in (
+        ("K1", viterbi_score_lanes_fused), ("K2", viterbi_backtrace_lanes),
+        ("K3", viterbi_batch_rows), ("K6", viterbi_score_lanes),
+        ("K4", PK.ungapped_scores), ("K5", PK.gapped_scores),
+        ("W1", TV.backtrace_walk_packed8))}
+
+
+@pytest.mark.parametrize("case", ["K1 fast", "K1 exact", "K6 table"])
+def test_mesh_sharded_sweep_bit_identical(cuda, case):
+    """parallel.mesh.sharded_lanes_scores over [cuda:0, cuda:0] against
+    the unsharded sweep: bit-identical, one launch a shard."""
+    from chip_smoke import ss_lut_inputs, synth_inputs
+    from hhsuite_tpu_torch.parallel import mesh as M
+    from hhsuite_tpu_torch.search.viterbi_search import sweep_batch
+
+    Lq, Lt, B = 96, 130, 301
+    qp, qtr, tp, ttr, tl = synth_inputs(Lq, Lt, B, 11, cuda, pad_last=True)
+    impl, ss = {"K1 fast": ("fused", {}), "K1 exact": ("exact", {}),
+                "K6 table": ("split", dict(zip(
+                    ("ss_lut", "ss_qidx", "ss_tidx"),
+                    ss_lut_inputs(Lq, Lt, B, 12, cuda))))}[case]
+    want = sweep_batch(qp, qtr, tp, ttr, tl, np.float32(-0.03), impl, ss)
+    n0 = _launches()
+    with M.use_mesh(M.make_mesh([cuda, cuda])):
+        got = M.sharded_lanes_scores(qp, qtr, tp, ttr, tl, np.float32(-0.03),
+                                     impl, ss)
+    torch.cuda.synchronize()
+    n = {k: v - n0[k] for k, v in _launches().items()}
+    assert n["K6" if ss else "K1"] == 2
+    assert got.shape == (B,) and _same(got, want)
+
+
+@pytest.mark.parametrize("case", ["K2", "K3 altali", "K3 SS", "K3 global"])
+def test_mesh_sharded_backtrace_byte_identical(cuda, case):
+    """parallel.mesh.sharded_viterbi_backtrace over [cuda:0, cuda:0]:
+    each shard's K2/K3 and W1 on the card, the gathered payload
+    byte-identical to the unsharded pass."""
+    from chip_smoke import exclusion_masks, ss_lut_inputs, synth_inputs
+    from hhsuite_tpu_torch.parallel import mesh as M
+    from hhsuite_tpu_torch.search.viterbi_search import backtrace_batch
+
+    Lq, Lt, B = 96, 130, 257
+    qp, qtr, tp, ttr, tl = synth_inputs(Lq, Lt, B, 13, cuda, pad_last=True)
+    kmax = Lq + Lt + 1
+    kw = dict(Lq_true=Lq)
+    if case == "K3 altali":
+        kw["cell_off"] = exclusion_masks(Lq, Lt, tl, 2, 14, cuda)
+    elif case == "K3 SS":
+        kw["ss_kw"] = dict(zip(("ss_lut", "ss_qidx", "ss_tidx"),
+                               ss_lut_inputs(Lq, Lt, B, 15, cuda)))
+    elif case == "K3 global":
+        kw["local"] = False
+    hot = case == "K2"
+    shift = np.float32(-0.03)
+    want = backtrace_batch(qp, qtr, tp, ttr, tl, shift, kmax, hot, **kw)
+    n0 = _launches()
+    with M.use_mesh(M.make_mesh([cuda, cuda])):
+        got = M.sharded_viterbi_backtrace(qp, qtr, tp, ttr, tl, shift, kmax,
+                                          hot, **kw)
+    torch.cuda.synchronize()
+    n = {k: v - n0[k] for k, v in _launches().items()}
+    assert n["K2" if hot else "K3"] == 2 and n["W1"] == 2
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("stage", ["K4", "K5"])
+def test_mesh_sharded_prefilter_int_identical(cuda, stage):
+    """parallel.mesh.sharded_prefilter_scores over [cuda:0, cuda:0]:
+    the resident pack's rows, whole and a subset, int-identical."""
+    from chip_smoke import K5_GAPS, long_tail_lengths, prefilter_table
+    from hhsuite_tpu_torch.parallel import mesh as M
+
+    rng = np.random.default_rng(16)
+    lens = long_tail_lengths(rng, 4099, L0=120)
+    seqs = [rng.integers(0, 219, n).astype(np.uint8).tobytes()
+            for n in lens]
+    pack = to_device_cs219(seqs, cuda)
+    qc = torch.from_numpy(prefilter_table(rng, 150)).to(cuda)
+    kern, args = ((PK.ungapped_scores_packed, (50,)) if stage == "K4"
+                  else (PK.gapped_scores_packed, K5_GAPS))
+    subset = rng.permutation(len(seqs))[:777]
+    want = [pack.scores(kern, qc, sub, *args) for sub in (None, subset)]
+    n0 = _launches()
+    with M.use_mesh(M.make_mesh([cuda, cuda])):
+        got = [pack.scores(kern, qc, sub, *args) for sub in (None, subset)]
+    n = {k: v - n0[k] for k, v in _launches().items()}
+    assert n[stage] == 4
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
