@@ -77,7 +77,7 @@ and no result line:
    ``multi_*`` searches on the card byte-identical to their CPU run,
    which runs beside (d) and (b)'s normal-entry runs, and within the
    golden tier of the reference outputs); (b) ``run_batch``
-   (``hhsearch``, default parameters) of the 8192 database's first 8
+   (``hhsearch``, default parameters) of the 8192 database's first 4
    entries at 1 and 2 threads, every ``_hhr`` (Date aside) and ``_m8``
    entry identical between the runs and to the query's own
    ``run_hhsearch``; (c) ``hhblits_batch -n 1`` of its first 3 entries
@@ -86,6 +86,25 @@ and no result line:
    queries per second beside the card line.  Phases 4 and 5 open their
    databases through ``search/engine.py:get_database``, so phase 7 finds
    them warm.
+
+8. the tool path: (a) ``hhsuitedb`` (its ``spawn`` pool) over the 512
+   family's a3m entries written out as files: its ``_a3m`` and
+   ``_cs219`` equal ``build_bench_db``'s entry for entry, its ``_hhm``
+   entries (the reference's rule: HHMs only for MSAs of more than 50
+   sequences, else for the first entry) equal apart from DATE, and
+   ``hhsearch`` on the card gives the same ``.hhr`` (Date and Command
+   aside) against it as against ``build_bench_db``'s database with its
+   ``_hhm`` cut to the same entries; (b) ``hhpred -n 1`` at full width on
+   the 8192-template SS database from the family query's sequence as
+   FASTA (hhblits -> addss with a ``-horiz`` file of
+   ``tools/benchdb.py:predict_ss`` -> hhsearch ``-ssm 2`` -> template
+   selection -> hhmakemodel's PIR): ``>ss_pred`` in the MSA, K4, K5, K1,
+   K6, K2/K3, W1 and R1-R4 launched (K4/K5 in the hhblits stage, K6 in
+   the hhsearch stage), the PIR's structure checks, each stage's wall
+   and launches; (c) the same ``hhpred`` on the 128 SS templates on the
+   card and on the CPU (the plain versions, a child process started
+   before (a)): ``.a3m``, ``.atab`` and ``.pir`` byte-identical, the
+   ``.hhr`` identical apart from Date and Command.
 
 A profiled warm query (phases 4-6) traces the card's activity alone
 (``torch.profiler``, CUDA activities): device time by kernel and the
@@ -1901,14 +1920,14 @@ sys.exit(rc)
 """
 
 
-def start_cpu_run(args):
+def start_cpu_run(args, threads=None):
     """One CLI run on the CPU (the plain versions) in a child process,
-    with a third of the host's cores for its torch threads, so that
-    phase 3's three CPU runs go side by side; its realign takes the
-    card's path (:data:`CPU_RUN`)."""
+    with ``threads`` torch threads (default a third of the host's cores,
+    so that phase 3's three CPU runs go side by side); its realign takes
+    the card's path (:data:`CPU_RUN`)."""
     from hhsuite_tpu_torch.device import DEVICE_ENV
 
-    threads = str(max(1, (os.cpu_count() or 3) // 3))
+    threads = str(threads or max(1, (os.cpu_count() or 3) // 3))
     env = dict(os.environ, **{DEVICE_ENV: "cpu", "OMP_NUM_THREADS": threads})
     return subprocess.Popen(
         [sys.executable, "-c", CPU_RUN.format(repo=REPO)] + args, env=env,
@@ -1919,7 +1938,7 @@ def finish_cpu_run(proc, tag) -> float:
     """Wait for :func:`start_cpu_run`'s child; returns its seconds."""
     out, _ = proc.communicate(timeout=900)
     if proc.returncode != 0:
-        raise AssertionError(f"phase3 {tag}: CPU run exit {proc.returncode}"
+        raise AssertionError(f"{tag}: CPU run exit {proc.returncode}"
                              f":\n{out[-3000:]}")
     return float(out.rsplit("CPU_SECONDS ", 1)[1].split()[0])
 
@@ -1958,7 +1977,7 @@ def phase3_card_vs_cpu(work, runs, counters):
                      int(timers.get("funnel_blocks", 0)),
                      int(timers.get("funnel_dropped", 0)))
     for tag, _args, _kern, flags in runs:
-        t_cpu = finish_cpu_run(procs[tag], tag)
+        t_cpu = finish_cpu_run(procs[tag], f"phase3 {tag}")
         got = dict(zip(flags, outs(tag, flags, "card")[1::2]))
         want = dict(zip(flags, outs(tag, flags, "cpu")[1::2]))
         a, b = _hhr_body(got["-o"]), _hhr_body(want["-o"])
@@ -2298,10 +2317,10 @@ def phase6_ss(base, query_text, counters):
 
 # ------------------------------------------------------- scale-out ----
 
-# phase 7: queries of the 8192-template database's batch (hhsearch) and
-# of the 2^20-entry database's batch (hhblits -n 1; 3, not 4, to keep the
-# phase near its 180 s)
-N_BATCH_SEARCH, N_BATCH_BLITS = 8, 3
+# phase 7: queries of the 8192-template database's batch (hhsearch; 4,
+# not 8, since phase 8 came) and of the 2^20-entry database's batch
+# (hhblits -n 1; 3, not 4, to keep the phase near its 180 s)
+N_BATCH_SEARCH, N_BATCH_BLITS = 4, 3
 
 
 def _query_ffindex(src_base, n, out_base):
@@ -2352,7 +2371,7 @@ def _timed_batch(tag, n, run):
 
 
 def phase7b_entry(work, base8k, dev):
-    """The 8192-template database's first 8 entries through the normal
+    """The 8192-template database's first 4 entries through the normal
     entry (run_hhsearch, default parameters), rendered as the batch
     renders them; returns (query ffindex base, queries, {kind: {name:
     text}})."""
@@ -2611,6 +2630,297 @@ def phase7_scale_out(work, bases, counters, dev, card):
         f"({N_BATCH_BLITS / walls_b[1]:.3f} -> "
         f"{N_BATCH_BLITS / walls_b[2]:.3f} queries/s)")
     return inside
+
+
+# ------------------------------------------------------- tool path ----
+
+def _family_fasta(query_a3m_path, out_path):
+    """The first sequence row of a family's query a3m (the row after its
+    first non-SS header) as FASTA; returns the sequence."""
+    with open(query_a3m_path) as f:
+        rows = [ln for ln in f.read().splitlines() if not ln.startswith("#")]
+    k = next(i for i, ln in enumerate(rows)
+             if ln.startswith(">") and not ln.startswith((">ss_", ">sa_")))
+    seq = rows[k + 1].replace("-", "").replace(".", "").upper()
+    with open(out_path, "w") as f:
+        f.write(f"{rows[k]}\n{seq}\n")
+    return seq
+
+
+def _write_horiz(seq, path):
+    """A PSIPRED ``.horiz`` file of ``tools/benchdb.py:predict_ss``'s
+    prediction of ``seq`` (PSIPRED is not on the card's machine)."""
+    from hhsuite_tpu_torch.tools.benchdb import predict_ss
+
+    pred, conf = predict_ss(seq)
+    rows = []
+    for k in range(0, len(seq), 60):
+        rows += [f"Conf: {conf[k:k + 60]}", f"Pred: {pred[k:k + 60]}",
+                 f"  AA: {seq[k:k + 60]}", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def _ffindex_entries(base):
+    from hhsuite_tpu_torch.io.ffindex import FFindexDatabase
+
+    db = FFindexDatabase(base + ".ffdata", base + ".ffindex")
+    return {e.name: db.read_bytes(e) for e in db.entries}
+
+
+def _no_hhm_date(payload: bytes) -> bytes:
+    """An HHM with its DATE line emptied (hhmake writes the time)."""
+    import re
+
+    return re.sub(rb"(?m)^DATE .*$", b"DATE", payload)
+
+
+def phase8a_hhsuitedb(work, base512, counters):
+    """``hhsuitedb`` over the 512 family's a3m entries written out as
+    files (its spawn pool): its _a3m and _cs219 equal build_bench_db's
+    entry for entry, its _hhm entries (the reference writes an HHM only
+    for MSAs of more than 50 sequences, else for the first entry) equal
+    build_bench_db's apart from DATE; then ``hhsearch`` on the card
+    against the new database and against build_bench_db's (its _a3m and
+    _cs219, its _hhm cut to the entries the new one holds, since a
+    template read from an HHM scores otherwise than one built from its
+    MSA): the .hhr files identical apart from Date and Command."""
+    from hhsuite_tpu_torch.cli import main as cli_main
+    from hhsuite_tpu_torch.io.ffindex import FFindexWriter
+
+    msas = os.path.join(work, "p8_msas")
+    os.makedirs(msas, exist_ok=True)
+    a3m = _ffindex_entries(base512 + "_a3m")
+    for name, payload in a3m.items():
+        with open(os.path.join(msas, name), "wb") as f:
+            f.write(payload)
+    new = os.path.join(work, "p8db")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli_main(["hhsuitedb", "-o", new, "--ia3m",
+                       os.path.join(msas, "*.a3m")])
+    t_build = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase8 (a): hhsuitedb exit {rc}")
+    want_hhm = _ffindex_entries(base512 + "_hhm")
+    for kind in ("a3m", "cs219", "hhm"):
+        got = _ffindex_entries(f"{new}_{kind}")
+        want = {"a3m": a3m, "hhm": want_hhm}.get(kind) or _ffindex_entries(
+            f"{base512}_{kind}")
+        if kind == "hhm":
+            bad = [n for n, p in got.items()
+                   if n not in want or _no_hhm_date(p) != _no_hhm_date(
+                       want[n])]
+            n_hhm = len(got)
+            if not got or bad:
+                raise AssertionError(f"phase8 (a): {len(bad)} of {len(got)} "
+                                     f"_hhm entries differ: {bad[:5]}")
+        elif got != want:
+            diff = sorted(n for n in set(got) | set(want)
+                          if got.get(n) != want.get(n))
+            raise AssertionError(f"phase8 (a): _{kind} differs from "
+                                 f"build_bench_db's in {len(diff)} entries: "
+                                 f"{diff[:5]}")
+    ref = os.path.join(work, "p8ref")
+    for kind in ("a3m", "cs219"):
+        for ext in (".ffdata", ".ffindex"):
+            shutil.copyfile(f"{base512}_{kind}{ext}", f"{ref}_{kind}{ext}")
+    with FFindexWriter(ref + "_hhm.ffdata", ref + "_hhm.ffindex") as w:
+        for name in sorted(_ffindex_entries(new + "_hhm")):
+            w.add(name, want_hhm[name])
+    walls, launches = {}, {}
+    for tag, db in (("new", new), ("build_bench_db", ref)):
+        reset(counters)
+        t0 = time.perf_counter()
+        if cli_main(["hhsearch", "-i", base512 + ".query.a3m", "-d", db,
+                     "-o", os.path.join(work, f"p8a_{tag}.hhr")]) != 0:
+            raise AssertionError(f"phase8 (a): hhsearch on {tag} failed")
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = read(counters)
+        # (512 templates take no funnel sweep: the backtrace pass and the
+        # realign run on all of them)
+        if launches[tag]["K2"] + launches[tag]["K3"] == 0 or any(
+                launches[tag][k] == 0 for k in ("W1",) + REALIGN_KEYS):
+            raise AssertionError(f"phase8 (a): the backtrace pass or the "
+                                 f"realign did not launch: {launches[tag]}")
+    a = _hhr_body(os.path.join(work, "p8a_new.hhr"))
+    b = _hhr_body(os.path.join(work, "p8a_build_bench_db.hhr"))
+    if a != b:
+        diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
+        raise AssertionError(f"phase8 (a): the two searches differ: {diff}")
+    log(f"phase8 (a) hhsuitedb: {len(a3m)} MSAs in {t_build:.3f} s (spawn "
+        f"pool of {min(os.cpu_count() or 1, 8)}); _a3m and _cs219 equal "
+        f"build_bench_db's ({len(a3m)} entries), {n_hhm} _hhm entr"
+        f"{'y' if n_hhm == 1 else 'ies'} equal apart from DATE; hhsearch on "
+        f"the card: new database {walls['new']:.3f} s, build_bench_db's "
+        f"{walls['build_bench_db']:.3f} s, .hhr identical ({len(a)} lines); "
+        f"launches {launches['new']}")
+
+
+@contextlib.contextmanager
+def _hhpred_stages(counters, marks):
+    """Time hhpred's stages (tools/hhpred.py) by wrapping the functions it
+    looks up at call time: ``marks`` gets (stage, start, end, launches
+    before, launches after) for hhblits, addss, hhsearch and hhmakemodel;
+    the selection is the gap between hhsearch's end and hhmakemodel's
+    start."""
+    from hhsuite_tpu_torch import cli
+    from hhsuite_tpu_torch.tools import addss, hhmakemodel
+
+    import torch
+
+    wrapped = ((cli, "cmd_hhblits", "hhblits"),
+               (cli, "cmd_hhsearch", "hhsearch"),
+               (addss, "addss", "addss"),
+               (hhmakemodel, "main", "hhmakemodel"))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in wrapped]
+
+    def wrap(fn, stage):
+        def run(argv):
+            torch.cuda.synchronize()
+            n0, t0 = read(counters), time.perf_counter()
+            try:
+                return fn(argv)
+            finally:
+                torch.cuda.synchronize()
+                marks.append((stage, t0, time.perf_counter(), n0,
+                              read(counters)))
+        return run
+
+    for (mod, attr, stage), (_m, _a, fn) in zip(wrapped, saved):
+        setattr(mod, attr, wrap(fn, stage))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _pir_checks(pir, tag):
+    """tests/test_hhpred_pipeline.py:36-46's checks of a PIR file."""
+    blocks = [b for b in pir.split(">P1;") if b.strip()]
+    lens = {len("".join(b.splitlines()[2:])) for b in blocks}
+    if not (pir.startswith(">P1;") and "sequence:" in pir
+            and pir.count("structureX:") >= 1 and pir.count("*") >= 2
+            and len(lens) == 1):
+        raise AssertionError(f"{tag}: the .pir fails the structure checks "
+                             f"(row lengths {sorted(lens)}):\n{pir[:500]}")
+    return len(blocks)
+
+
+def run_hhpred(work, name, args, counters):
+    """``hhpred`` through the CLI on the card, its stages timed
+    (:func:`_hhpred_stages`); the hhblits stage's .hhr, which hhpred
+    sends to stdout, goes to a file.  Returns (wall, stage walls,
+    stage launches, launches over the run, stage timers)."""
+    import torch
+
+    from hhsuite_tpu_torch import profiling
+    from hhsuite_tpu_torch.cli import main as cli_main
+
+    marks = []
+    reset(counters)
+    timers = profiling.enable_stage_timers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(work, name + ".stdout"), "w") as out, \
+                contextlib.redirect_stdout(out), \
+                _hhpred_stages(counters, marks):
+            rc = cli_main(["hhpred", "-o", os.path.join(work, name)] + args)
+    finally:
+        profiling.disable_stage_timers()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase8 {name}: hhpred exit {rc}")
+    stages = {st: e - b for st, b, e, _n0, _n1 in marks}
+    spans = {st: (b, e) for st, b, e, _n0, _n1 in marks}
+    stages["selection"] = spans["hhmakemodel"][0] - spans["hhsearch"][1]
+    per = {st: {k: n1[k] - n0[k] for k in n1}
+           for st, _b, _e, n0, n1 in marks}
+    return wall, stages, per, read(counters), timers
+
+
+def phase8_tool_path(work, bases, counters, card):
+    """(c)'s CPU run starts first (hhpred on the 128 SS templates with the
+    plain versions, in a child process); (a) hhsuitedb; (b) hhpred at
+    full width on the 8192 SS templates, the hhblits stage from a single
+    sequence; (c) the card's hhpred on the 128 SS templates against the
+    CPU's.  Returns (b)'s launches over the run."""
+    base512, base8k_ss, base_ss_small = bases
+    fasta = os.path.join(work, "p8_query.fas")
+    seq = _family_fasta(base8k_ss + ".query.a3m", fasta)
+    horiz = os.path.join(work, "p8_query.horiz")
+    _write_horiz(seq, horiz)
+    args = ["-i", fasta, "-n", "1", "-horiz", horiz]
+    cpu_out = os.path.join(work, "p8c_cpu")
+    t_all = time.perf_counter()
+    cpu = start_cpu_run(["hhpred", "-o", cpu_out, "-d", base_ss_small]
+                        + args, threads=max(1, (os.cpu_count() or 2) // 2))
+    try:
+        t0 = time.perf_counter()
+        phase8a_hhsuitedb(work, base512, counters)
+        log(f"phase8 (a): {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        wall, stages, per, n, timers = run_hhpred(
+            work, "p8b", args + ["-d", base8k_ss], counters)
+        with open(os.path.join(work, "p8b.a3m")) as f:
+            a3m = f.read()
+        if ">ss_pred" not in a3m:
+            raise AssertionError("phase8 (b): no >ss_pred in the .a3m after "
+                                 "addss")
+        need = ("K1", "K4", "K5", "K6", "W1") + REALIGN_KEYS
+        if any(n[k] == 0 for k in need) or n["K2"] + n["K3"] == 0:
+            raise AssertionError(f"phase8 (b): a kernel of the path did not "
+                                 f"launch: {n}")
+        if per["hhsearch"]["K6"] == 0 or per["hhblits"]["K4"] == 0 or \
+                per["hhblits"]["K5"] == 0:
+            raise AssertionError(f"phase8 (b): K6 must launch in the "
+                                 f"hhsearch stage, K4/K5 in the hhblits "
+                                 f"stage: {per}")
+        with open(os.path.join(work, "p8b.pir")) as f:
+            n_pir = _pir_checks(f.read(), "phase8 (b)")
+        check_walks("phase8 (b)", n)
+        n_seqs = sum(1 for ln in a3m.splitlines() if ln.startswith(">")
+                     and not ln.startswith((">ss_", ">sa_")))
+        log(f"phase8 (b) hhpred, 8192 SS templates, a single sequence of "
+            f"{len(seq)} residues ({card}): {wall:.3f} s; stages (s): "
+            + json.dumps({k: round(v, 3) for k, v in stages.items()})
+            + f"; MSA {n_seqs} sequences with >ss_pred; .pir {n_pir} "
+            f"records; launches {n}")
+        log("phase8 (b) launches by stage: " + json.dumps(per))
+        log("phase8 (b) stage timers over the run (s): " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log(f"phase8 (b): {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        card_out = os.path.join(work, "p8c_card")
+        wall_c, stages_c, _per, n_c, _t = run_hhpred(
+            work, "p8c_card", args + ["-d", base_ss_small], counters)
+        t_cpu = finish_cpu_run(cpu, "phase8 (c)")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    for ext in (".a3m", ".atab", ".pir"):
+        with open(card_out + ext, "rb") as f1, open(cpu_out + ext, "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"phase8 (c): card and CPU {ext} "
+                                     "differ")
+    a, b = _hhr_body(card_out + ".hhr"), _hhr_body(cpu_out + ".hhr")
+    if a != b:
+        diff = [(x, y) for x, y in zip(a, b) if x != y][:5]
+        raise AssertionError(f"phase8 (c): card and CPU .hhr differ: {diff}")
+    log(f"phase8 (c) hhpred, {N_FAMILY_SMALL} SS templates: card "
+        f"{wall_c:.3f} s (stages " + json.dumps(
+            {k: round(v, 3) for k, v in stages_c.items()})
+        + f"; launches {n_c}), CPU (plain versions) {t_cpu:.2f} s; .a3m, "
+        f".atab and .pir byte-identical, .hhr identical ({len(a)} lines)")
+    log(f"phase8 (c): {time.perf_counter() - t0:.1f} s (waiting for the CPU "
+        f"run included); phase 8 {time.perf_counter() - t_all:.1f} s")
+    return n
 
 
 # kernels timed by CUDA events around each launch on a profiled query:
@@ -2996,7 +3306,10 @@ def main() -> int:
         launches_sharded = phase7_scale_out(
             work, (base8k, base_big, base_small, base_small_d), counters,
             dev, card)
-        phase_ok(7, t_phase)
+        t_phase = phase_ok(7, t_phase)
+        launches_hhpred = phase8_tool_path(
+            work, (base512, base_ss8k, base_ss_small), counters, card)
+        phase_ok(8, t_phase)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3008,8 +3321,9 @@ def main() -> int:
 
     # launches: K1-K3, R1-R4 and W1 on the hhsearch path (phase 4), K4/K5
     # on the hhblits path (phase 5), K6 on the SS hhsearch path (phase 6);
-    # each also with its hhblits and SS counts, and its launches inside
-    # the sharded calls of phase 7's mesh of the card twice
+    # each also with its hhblits and SS counts, its launches inside the
+    # sharded calls of phase 7's mesh of the card twice, and over phase
+    # 8's full-width hhpred run
     main_path = {"K1": launches, "K2": launches, "K3": launches,
                  "K4": launches_blits, "K5": launches_blits,
                  "K6": launches_ss, "W1": launches}
@@ -3021,6 +3335,7 @@ def main() -> int:
         r["launches_hhblits"] = launches_blits[key]
         r["launches_ss"] = launches_ss[key]
         r["launches_sharded"] = launches_sharded[key]
+        r["launches_hhpred"] = launches_hhpred[key]
         kernels.append(r)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

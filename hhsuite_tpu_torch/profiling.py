@@ -1,5 +1,9 @@
 """Profiler hooks for the search stages.
 
+* ``HHSUITE_TPU_TORCH_PROFILE=<dir>`` — every CLI command runs inside
+  ``trace_if_enabled()``: a ``torch.profiler`` trace of the CPU and (when
+  a card is present) CUDA activity, written into <dir> as a Chrome trace
+  (``trace-<pid>-<ns>.json``; open it in Perfetto or chrome://tracing).
 * ``annotate(name)`` — a ``torch.profiler.record_function`` range (an
   NVTX range as well when a card is in use) around the search funnel's
   stages, so host phases and kernels line up in one timeline.
@@ -15,10 +19,39 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import os
 import threading
 import time
 
 import torch
+
+PROFILE_ENV = "HHSUITE_TPU_TORCH_PROFILE"
+
+
+def profile_dir() -> str | None:
+    """The trace directory named by ``HHSUITE_TPU_TORCH_PROFILE``, or
+    None when the variable is unset or empty."""
+    d = os.environ.get(PROFILE_ENV, "").strip()
+    return d or None
+
+
+@contextlib.contextmanager
+def trace_if_enabled():
+    """Trace the enclosed block with ``torch.profiler`` (CPU and CUDA
+    activities) into :func:`profile_dir` when it is set; a no-op
+    otherwise."""
+    d = profile_dir()
+    if not d:
+        yield
+        return
+    os.makedirs(d, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        d, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
 # wall-clock accumulation per annotated stage (enabled by
