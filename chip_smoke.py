@@ -1974,8 +1974,8 @@ def phase3_card_vs_cpu(work, runs, counters):
         if any(n[k] == 0 for k in kern):
             raise AssertionError(f"phase3 {tag}: {kern} did not launch ({n})")
         card[tag] = (time.perf_counter() - t0, n,
-                     int(timers.get("funnel_blocks", 0)),
-                     int(timers.get("funnel_dropped", 0)))
+                     int(timers.get("n:funnel_blocks", 0)),
+                     int(timers.get("n:funnel_dropped", 0)))
     for tag, _args, _kern, flags in runs:
         t_cpu = finish_cpu_run(procs[tag], f"phase3 {tag}")
         got = dict(zip(flags, outs(tag, flags, "card")[1::2]))
@@ -2031,8 +2031,8 @@ def phase4_full(base, query_text, counters):
             f"{_funnel_counts(timers)}, realign: "
             + ("device" if engine._use_device_realign(
                 par, hits, torch.device("cuda")) else "host"))
-        log("phase4 " + tag + " stages (s): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log("phase4 " + tag + " stages (s): "
+            + json.dumps(_seconds(timers)))
         log(f"phase4 {tag} {_realign_split(timers)}")
         log(f"phase4 {tag} {_backtrace_split(timers)}")
         if any(n[k] == 0 for k in ("K1", "K2", "K3", "W1") + REALIGN_KEYS):
@@ -2096,29 +2096,37 @@ def _realign_split(timers: dict) -> str:
 
 
 def _backtrace_split(timers: dict) -> str:
-    """The backtrace pass's timers, in seconds: the launches of K2/K3
-    and W1 (``viterbi_backtrace_pass``), the payloads' copy to the host
-    after each junk's last batch (``vit_payload_fetch``), their sum, and
-    the dispatch stage that holds both (``host_vit_dispatch``)."""
-    bt = timers.get("viterbi_backtrace_pass", 0.0)
-    fetch = timers.get("vit_payload_fetch", 0.0)
-    return (f"backtrace (s): viterbi_backtrace_pass {bt:.4f}, "
-            f"vit_payload_fetch {fetch:.4f}, sum {bt + fetch:.4f}, "
-            f"host_vit_dispatch {timers.get('host_vit_dispatch', 0.0):.4f}")
+    """The backtrace pass's spans, in seconds: each batch's inputs
+    (``vit_bt_prep``), the launches of K2/K3 and W1
+    (``viterbi_backtrace_pass``), the payloads' copy to the host after
+    each junk's last batch (``vit_payload_fetch``), and their sum."""
+    keys = ("vit_bt_prep", "viterbi_backtrace_pass", "vit_payload_fetch")
+    vals = [timers.get(k, 0.0) for k in keys]
+    return ("backtrace (s): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in zip(keys, vals))
+            + f", sum {sum(vals):.4f}")
 
 
 def _funnel_counts(timers: dict) -> str:
-    """Take the search's funnel counts out of a stage-timer dict (which
-    then holds seconds only) and say them."""
-    blocks = int(timers.pop("funnel_blocks", 0))
-    dropped = int(timers.pop("funnel_dropped", 0))
+    """Say the search's funnel counts of a stage-timer dict."""
+    blocks = int(timers.get("n:funnel_blocks", 0))
+    dropped = int(timers.get("n:funnel_dropped", 0))
     return (f"funnel blocks {blocks}, switched itself off "
             f"{'yes' if dropped else 'no'}")
 
 
+def _seconds(timers: dict, digits: int = 4) -> dict:
+    """A stage-timer dict's seconds (each span's wall time and the locks'
+    wait; no counts, no ``:self`` or ``:cpu``), rounded, by name."""
+    from hhsuite_tpu_torch.profiling import wall_seconds
+
+    return {k: round(v, digits)
+            for k, v in sorted(wall_seconds(timers).items())}
+
+
 def _delta(now: dict, before: dict) -> dict:
-    return {k: round(v - before.get(k, 0), 4) for k, v in sorted(now.items())
-            if v - before.get(k, 0) and not k.startswith("funnel_")}
+    return {k: round(v - before.get(k, 0), 4)
+            for k, v in _seconds(now, 12).items() if v - before.get(k, 0)}
 
 
 def phase5_hhblits(base, query_text, counters, dev):
@@ -2186,8 +2194,7 @@ def phase5_hhblits(base, query_text, counters, dev):
             log(f"phase5 {tag} round {r['round']} " + _backtrace_split(
                 _delta(r["stages"], prev_t)))
             prev_n, prev_t = r["launches"], r["stages"]
-        log(f"phase5 {tag} stages (s): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log(f"phase5 {tag} stages (s): " + json.dumps(_seconds(timers)))
         if any(n[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "W1")
                + REALIGN_KEYS):
             raise AssertionError(f"phase5: a kernel of the path was not "
@@ -2285,8 +2292,8 @@ def phase6_ss(base, query_text, counters):
             f"{hits[0].Probab if hits else None} SS "
             f"{hits[0].score_ss if hits else None}, launches {n}, "
             f"{_funnel_counts(timers)}")
-        log("phase6 " + tag + " stages (s): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log("phase6 " + tag + " stages (s): "
+            + json.dumps(_seconds(timers)))
         log(f"phase6 {tag} {_realign_split(timers)}")
         log(f"phase6 {tag} {_backtrace_split(timers)}")
         if q.nss_pred < 0:
@@ -2532,8 +2539,7 @@ def phase7d_mesh(work, base8k, base_small, base_small_d, counters, devices):
             torch.cuda.synchronize()
         finally:
             profiling.disable_stage_timers()
-        top = dict(sorted(((k, round(v, 3)) for k, v in timers.items()
-                           if not k.startswith("funnel_")),
+        top = dict(sorted(_seconds(timers, 3).items(),
                           key=lambda kv: -kv[1])[:6])
         return out, time.perf_counter() - t0, top
 
@@ -2891,8 +2897,8 @@ def phase8_tool_path(work, bases, counters, card):
             + f"; MSA {n_seqs} sequences with >ss_pred; .pir {n_pir} "
             f"records; launches {n}")
         log("phase8 (b) launches by stage: " + json.dumps(per))
-        log("phase8 (b) stage timers over the run (s): " + json.dumps(
-            {k: round(v, 4) for k, v in sorted(timers.items())}))
+        log("phase8 (b) stage timers over the run (s): "
+            + json.dumps(_seconds(timers)))
         log(f"phase8 (b): {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()

@@ -28,6 +28,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from .profiling import annotate, stage_add
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -120,8 +122,10 @@ def build_cuda_library(name: str, src_dir: str = CSRC_DIR) -> BuildInfo:
         return BuildInfo(so, 0.0, log, True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    stage_add("kernel_builds")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    with annotate("kernel_build"):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}\n"

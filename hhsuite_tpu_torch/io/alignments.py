@@ -16,6 +16,7 @@ import numpy as np
 from ..constants import NAA, aa2i
 from ..core.hit import Hit
 from ..core.hmm import HMM
+from ..profiling import annotated
 
 STOP, MM, GD, IM, DG, MI = 0, 2, 3, 4, 5, 6
 NLEN = 14
@@ -445,6 +446,7 @@ class FullAlignment:
         return self.print_a2m(showcons, showdssp, showpred, aliwidth, tf)
 
 
+@annotated("host_output")
 def print_alignments(q: HMM, hitlist, par, S: np.ndarray,
                      outformat: int = 0) -> str:
     """HitList::PrintAlignments (hhhitlist.cpp:179-228).

@@ -14,6 +14,7 @@ import numpy as np
 
 from ..core.hit import Hit, HitList
 from ..core.hmm import HMM
+from ..profiling import annotated
 
 STOP, MM, GD, IM, DG, MI = 0, 2, 3, 4, 5, 6
 
@@ -24,6 +25,7 @@ def _cpp_float(x: float) -> str:
     return s
 
 
+@annotated("host_output")
 def print_hit_list(q: HMM, hitlist: HitList, maxdbstrlen=200, z=10, Z=500,
                    p=20.0, E=1e6, argv: Optional[List[str]] = None,
                    datestr: Optional[str] = None) -> str:

@@ -56,7 +56,11 @@ def build(verbose: bool = False) -> str:
     cmd = _cmd(_SRC, tmp)
     if verbose:
         print(" ".join(cmd), file=sys.stderr)
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    from ..profiling import annotate, stage_add
+
+    stage_add("kernel_builds")
+    with annotate("kernel_build"):
+        res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise subprocess.CalledProcessError(res.returncode, cmd, res.stdout,
                                             res.stderr)

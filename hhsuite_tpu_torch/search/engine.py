@@ -27,7 +27,7 @@ from ..io.ffindex import FFindexDatabase
 from ..io.hhm import read_hhm
 from ..matrices import (SecStrucMatrices, SubstitutionMatrix,
                         get_ss_matrices, get_substitution_matrix)
-from ..profiling import annotate, gc_paused_fn
+from ..profiling import annotate, gc_paused_fn, held, request
 from .posterior import (MACBacktraceResult, PosteriorDecoder,
                         RealignMaskSpec, build_realign_cell_off,
                         prepare_query_transitions,
@@ -49,7 +49,7 @@ def get_database(base: str) -> "HHDatabase":
     run, src/hhblits_omp.cpp:96-120).  The instance's caches grow under
     its :func:`db_lock` over immutable files, so worker threads share
     it."""
-    with _DB_CACHE_LOCK:
+    with held(_DB_CACHE_LOCK):
         db = _DB_CACHE.get(base)
         if db is None:
             db = _DB_CACHE[base] = HHDatabase(base)
@@ -317,24 +317,19 @@ def get_resident_pack(db, names: List[str], par: Parameters,
            par.gapf, par.gapg, par.gaph, par.gapi,
            par.pc_hhm_nocontext_mode, par.pc_hhm_nocontext_a,
            par.pc_hhm_nocontext_b, par.pc_hhm_nocontext_c)
-    with db_lock(db):
+    with held(db_lock(db)):
         packs = db.__dict__.setdefault("_resident_packs", {})
         pack = packs.get(key)
         if pack is None:
             pack = packs[key] = ResidentTemplatePack(dev)
     budget = PACK_BUDGET_GB
-    import time as _time
-
-    from ..profiling import stage_add
-    with pack.lock:
+    with held(pack.lock):
         items = []
-        _t0 = _time.perf_counter()
         for name in names:
             if name not in pack.row_of:
                 t, _fmt = db._prepared_cache_entry(name, par, mats,
                                                    use_global_weights)
                 items.append((name, t))
-        stage_add("host_template_parse", _time.perf_counter() - _t0)
         # device-memory budget: on very large databases (hundreds of
         # thousands of templates) a fully-resident pack would exceed
         # device memory; past the budget the search falls back to
@@ -356,8 +351,6 @@ def get_resident_pack(db, names: List[str], par: Parameters,
                     f"upload instead")
             return PACK_DISABLED
         if items:
-            from ..profiling import annotate
-
             with annotate("template_pack_upload"):
                 pack.ensure(items)
     return pack
@@ -558,11 +551,12 @@ def perform_realign(par: Parameters, q_realign: HMM, hitlist: HitList,
         for group in groups.values():
             group.sort(key=lambda h: h.irep)
         tmpl: Dict[str, HMM] = {}
-        for name, group in groups.items():
-            t, _fmt = get_template(group[0].entry)
-            t.log2lin_transitions()
-            prepare_template_transitions(t)
-            tmpl[name] = t
+        with annotate("realign_template_prep"):
+            for name, group in groups.items():
+                t, _fmt = get_template(group[0].entry)
+                t.log2lin_transitions()
+                prepare_template_transitions(t)
+                tmpl[name] = t
         to_excl: Dict[str, List[MACBacktraceResult]] = \
             {name: [] for name in groups}
         # the compact interval form (the corridor is built on the
@@ -823,12 +817,12 @@ def run_hhalign(par: Parameters, query_text: str, template_texts:
 
 
 @gc_paused_fn
+@request("hhsearch")
 def run_hhsearch(par: Parameters, query_text: str, db: HHDatabase,
                  query_name: str = "query", device=None):
     """hhsearch -i query -d db (single round, no prefilter) on
-    ``device`` (default: the CUDA card)."""
-    from ..profiling import annotate
-
+    ``device`` (default: the CUDA card), as one request
+    (``hhsearch_query``)."""
     dev = resolve_device(device)
     mats = get_substitution_matrix(par.matrix)
     ss = get_ss_matrices(par.ssa)

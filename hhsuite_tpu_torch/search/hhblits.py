@@ -21,7 +21,7 @@ from ..core.hmm import HMM
 from ..cs.context_lib import ContextLibrary
 from ..device import resolve_device
 from ..matrices import get_ss_matrices, get_substitution_matrix
-from ..profiling import annotate, gc_paused_fn
+from ..profiling import annotate, gc_paused_fn, request
 from .engine import (HHDatabase, get_resident_pack, neutralize_tags,
                      perform_realign, premerge_hits)
 from .prefilter import database_cs219, prefilter_db
@@ -113,12 +113,14 @@ def prefilter_pseudocounts(par: Parameters, q_tmp: HMM, mats) -> None:
 
 
 @gc_paused_fn
+@request("hhblits")
 def run_hhblits(par: Parameters, query_text: str, db: HHDatabase,
                 query_name: str = "query",
                 lib: Optional[ContextLibrary] = None, device=None,
                 on_round: Optional[Callable[[dict], None]] = None):
     """Returns (q, hitlist, qali) after par.num_rounds iterations, on
-    ``device`` (default: the CUDA card).  ``on_round``, when given, is
+    ``device`` (default: the CUDA card), as one request
+    (``hhblits_query``).  ``on_round``, when given, is
     called at the end of each round with that round's counts: round,
     prefilter survivors (stage1, stage2), new and old entries, templates
     searched and hits."""
@@ -253,16 +255,19 @@ def run_hhblits(par: Parameters, query_text: str, db: HHDatabase,
         with annotate("host_merge"):
             if merge_cond:
                 if new_hits > 0:
-                    merge_hits_to_query(par, qali, hitlist, previous_hits,
-                                        db, mats, MINCOLS_REALIGN,
-                                        premerged_hits,
-                                        qali_allseqs=qali_allseqs)
-                qnew = HMM()
-                frequencies_and_transitions(qali, qnew, par.wg, par.mark,
-                                            par.cons, par.showcons, mats.pb,
-                                            mats.Sim)
-                if par.notags:
-                    neutralize_tags(qnew, mats.pb)
+                    with annotate("merge_hits"):
+                        merge_hits_to_query(par, qali, hitlist,
+                                            previous_hits, db, mats,
+                                            MINCOLS_REALIGN, premerged_hits,
+                                            qali_allseqs=qali_allseqs)
+                with annotate("merge_profile"):
+                    qnew = HMM()
+                    frequencies_and_transitions(qali, qnew, par.wg,
+                                                par.mark, par.cons,
+                                                par.showcons, mats.pb,
+                                                mats.Sim)
+                    if par.notags:
+                        neutralize_tags(qnew, mats.pb)
                 if par.alisbasename:
                     alis[round_no] = copy.deepcopy(
                         qali_allseqs if par.allseqs else qali)

@@ -441,19 +441,16 @@ class PosteriorDecoder:
         (callers use the host path for -omat).  Saved-score semantics
         match ``realign``: the hits keep their search scores, so the
         Forward score is not computed (the payload's score field is 0).
-        Stage timers: ``host_realign_assemble`` (staging, upload and
-        launches),
+        Spans: ``host_realign_assemble`` (staging, upload and launches),
         ``posterior_fetch_wait`` (the payload's copy and unpack),
         ``host_realign_write`` (the hits' fields).
         """
-        import time
-
         import torch
 
         from ..ops.posterior_batch import (fb_mac_rows, mac_walk_packed8,
                                            mac_walk_unpack8,
                                            realign_mask_device)
-        from ..profiling import stage_add
+        from ..profiling import annotate
 
         if not items:
             return
@@ -470,131 +467,129 @@ class PosteriorDecoder:
         # the order does not matter
         items = sorted(items, key=lambda it: -it[1].L)
         for s in range(0, len(items), REALIGN_CHUNK):
-            t0 = time.perf_counter()
-            part = items[s: s + REALIGN_CHUNK]
-            # a level of several chunks pads each to the full chunk with
-            # lanes of cells all off
-            B = REALIGN_CHUNK if len(items) > REALIGN_CHUNK else len(part)
-            Lt_max = max(t.L for _h, t, _c in part)
-            Lt_pad = -(-max(Lt_max, 128) // 128) * 128
-            Wj = Lt_pad + 1
-            tp = np.zeros((B, Lt_pad + 2, 20), np.float32)
-            ttr = np.zeros((B, Lt_pad + 2, NTRANS), np.float32)
-            use_spec = isinstance(part[0][2], RealignMaskSpec)
-            if use_spec:
-                P = max((len(sp.E) for _h, _t, sp in part), default=0)
-                rect = np.zeros((B, 4), np.int32)
-                corner = np.zeros(B, np.int32)
-                tLv = np.zeros(B, np.int32)
-                loF_c = np.ones((B, Wj), np.int16)
-                hiF_c = np.zeros((B, Wj), np.int16)
-                loF_r = np.ones((B, Lq + 1), np.int16)
-                hiF_r = np.zeros((B, Lq + 1), np.int16)
-                loE_c = np.ones((B, P, Wj), np.int16)
-                hiE_c = np.zeros((B, P, Wj), np.int16)
-                loE_r = np.ones((B, P, Lq + 1), np.int16)
-                hiE_r = np.zeros((B, P, Lq + 1), np.int16)
-                for b, (_h, t, sp) in enumerate(part):
-                    rect[b] = (sp.i1, sp.j1, sp.i2, sp.j2)
-                    corner[b] = sp.corner_j0
-                    tLv[b] = sp.Lt
-                    lc, hc, lr, hr = sp.F
-                    loF_c[b, : sp.Lt + 1] = lc
-                    hiF_c[b, : sp.Lt + 1] = hc
-                    loF_r[b] = lr
-                    hiF_r[b] = hr
-                    for p, (lc, hc, lr, hr) in enumerate(sp.E):
-                        loE_c[b, p, : sp.Lt + 1] = lc
-                        hiE_c[b, p, : sp.Lt + 1] = hc
-                        loE_r[b, p] = lr
-                        hiE_r[b, p] = hr
-            else:
-                co = np.ones((B, Lq + 1, Wj), bool)
-            need_ss = any(h.ssm2 for h, _t, _c in part)
-            ss_table = None
-            if need_ss:
-                # the SS factors as a table with per-lane offsets
-                ss_table = tuple(dev(x) for x in self.ss_table(
-                    q, [(t, h.ssm2) for h, t, _c in part], B, Wj))
-                ss0 = np.ones(B, np.float32)
-            for b, (hit, t, co_h) in enumerate(part):
-                tp[b, : t.L + 2] = t.p.astype(np.float32)
-                ttr[b, : t.L + 2] = t.tr.astype(np.float32)
-                if not use_spec:
-                    co[b, :, : t.L + 1] = co_h
-                if need_ss and hit.ssm2:
-                    ss0[b] = fm.fpow2(np.float32(_score_ss_single(
-                        q, t, 1, t.L + 1, self.ssw, hit.ssm2,
-                        self.S73, self.S37, self.S33)))
-            t_Ls = np.zeros(B, np.int32)
-            t_Ls[: len(part)] = [t.L for _h, t, _c in part]
-            kmax = Lq + Lt_pad + 2
-            if use_spec:
-                co_d = realign_mask_device(*(dev(x) for x in (
-                    rect, corner, tLv, loF_c, hiF_c, loF_r, hiF_r, loE_c,
-                    hiE_c, loE_r, hiE_r)))
-            else:
-                co_d = dev(co)
-            b_mac, i2_d, j2_d, p_mm_d, _sc, _pf = fb_mac_rows(
-                qp, qtr, dev(tp), dev(ttr), co_d, shift, mact, None,
-                dev(ss0) if need_ss else None, local=self.local,
-                t_L=dev(t_Ls), ss_table=ss_table)
-            packed_d = mac_walk_packed8(b_mac, p_mm_d, i2_d, j2_d,
-                                        torch.zeros(B, device=device), kmax)
-            del co_d, b_mac, p_mm_d, _sc, _pf, ss_table
-            stage_add("host_realign_assemble", time.perf_counter() - t0)
-
-            t0 = time.perf_counter()
-            (_score, i2, j2, n, mm_count, empty, st, ii,
-             jj, post) = mac_walk_unpack8(packed_d.cpu().numpy(), kmax)
-            stage_add("posterior_fetch_wait", time.perf_counter() - t0)
-
-            t0 = time.perf_counter()
-            for b, (hit, t, _co_h) in enumerate(part):
-                saved = (hit.score, hit.score_ss, hit.score_aass,
-                         hit.Pval, hit.Pvalt, hit.logPval, hit.logPvalt,
-                         hit.Eval, hit.logEval, hit.Probab)
-                hit.i2 = int(i2[b])
-                hit.j2 = int(j2[b])
-                if empty[b]:
-                    hit.matched_cols = 1
-                    hit.i = np.array([hit.i2], np.int32)
-                    hit.j = np.array([hit.j2], np.int32)
-                    hit.states = np.zeros(1, np.int8)
-                    hit.nsteps = 0
-                    hit.i1 = hit.i2
-                    hit.j1 = hit.j2
-                    hit.alt_i = [hit.i2]
-                    hit.alt_j = [hit.j2]
-                    P_post = np.zeros(1, np.float32)
+            with annotate("host_realign_assemble"):
+                part = items[s: s + REALIGN_CHUNK]
+                # a level of several chunks pads each to the full chunk with
+                # lanes of cells all off
+                B = REALIGN_CHUNK if len(items) > REALIGN_CHUNK else len(part)
+                Lt_max = max(t.L for _h, t, _c in part)
+                Lt_pad = -(-max(Lt_max, 128) // 128) * 128
+                Wj = Lt_pad + 1
+                tp = np.zeros((B, Lt_pad + 2, 20), np.float32)
+                ttr = np.zeros((B, Lt_pad + 2, NTRANS), np.float32)
+                use_spec = isinstance(part[0][2], RealignMaskSpec)
+                if use_spec:
+                    P = max((len(sp.E) for _h, _t, sp in part), default=0)
+                    rect = np.zeros((B, 4), np.int32)
+                    corner = np.zeros(B, np.int32)
+                    tLv = np.zeros(B, np.int32)
+                    loF_c = np.ones((B, Wj), np.int16)
+                    hiF_c = np.zeros((B, Wj), np.int16)
+                    loF_r = np.ones((B, Lq + 1), np.int16)
+                    hiF_r = np.zeros((B, Lq + 1), np.int16)
+                    loE_c = np.ones((B, P, Wj), np.int16)
+                    hiE_c = np.zeros((B, P, Wj), np.int16)
+                    loE_r = np.ones((B, P, Lq + 1), np.int16)
+                    hiE_r = np.zeros((B, P, Lq + 1), np.int16)
+                    for b, (_h, t, sp) in enumerate(part):
+                        rect[b] = (sp.i1, sp.j1, sp.i2, sp.j2)
+                        corner[b] = sp.corner_j0
+                        tLv[b] = sp.Lt
+                        lc, hc, lr, hr = sp.F
+                        loF_c[b, : sp.Lt + 1] = lc
+                        hiF_c[b, : sp.Lt + 1] = hc
+                        loF_r[b] = lr
+                        hiF_r[b] = hr
+                        for p, (lc, hc, lr, hr) in enumerate(sp.E):
+                            loE_c[b, p, : sp.Lt + 1] = lc
+                            hiE_c[b, p, : sp.Lt + 1] = hc
+                            loE_r[b, p] = lr
+                            hiE_r[b, p] = hr
                 else:
-                    nb = int(n[b])
-                    hit.nsteps = nb
-                    hit.i = np.zeros(nb + 1, np.int32)
-                    hit.j = np.zeros(nb + 1, np.int32)
-                    hit.states = np.zeros(nb + 1, np.int8)
-                    hit.i[1:] = ii[b, :nb]
-                    hit.j[1:] = jj[b, :nb]
-                    hit.states[1:] = st[b, :nb]
-                    hit.states[nb] = MM       # reference overwrite
-                    hit.matched_cols = 1 + int(mm_count[b])
-                    hit.i1 = int(hit.i[nb])
-                    hit.j1 = int(hit.j[nb])
-                    hit.alt_i = ii[b, :nb].astype(np.int64)
-                    hit.alt_j = jj[b, :nb].astype(np.int64)
-                    # posteriors only at MM steps (the host gathers
-                    # AFTER the terminal-state MM overwrite, so the
-                    # last step's posterior is included either way)
-                    P_post = np.zeros(nb + 1, np.float32)
-                    mm_mask = hit.states[1:] == MM
-                    P_post[1:][mm_mask] = post[b, :nb][mm_mask]
-                self._rescore_mac_path(q, t, hit, None, corr,
-                                       P_post=P_post)
-                (hit.score, hit.score_ss, hit.score_aass, hit.Pval,
-                 hit.Pvalt, hit.logPval, hit.logPvalt, hit.Eval,
-                 hit.logEval, hit.Probab) = saved
-                hit.P_MM = None
-            stage_add("host_realign_write", time.perf_counter() - t0)
+                    co = np.ones((B, Lq + 1, Wj), bool)
+                need_ss = any(h.ssm2 for h, _t, _c in part)
+                ss_table = None
+                if need_ss:
+                    # the SS factors as a table with per-lane offsets
+                    ss_table = tuple(dev(x) for x in self.ss_table(
+                        q, [(t, h.ssm2) for h, t, _c in part], B, Wj))
+                    ss0 = np.ones(B, np.float32)
+                for b, (hit, t, co_h) in enumerate(part):
+                    tp[b, : t.L + 2] = t.p.astype(np.float32)
+                    ttr[b, : t.L + 2] = t.tr.astype(np.float32)
+                    if not use_spec:
+                        co[b, :, : t.L + 1] = co_h
+                    if need_ss and hit.ssm2:
+                        ss0[b] = fm.fpow2(np.float32(_score_ss_single(
+                            q, t, 1, t.L + 1, self.ssw, hit.ssm2,
+                            self.S73, self.S37, self.S33)))
+                t_Ls = np.zeros(B, np.int32)
+                t_Ls[: len(part)] = [t.L for _h, t, _c in part]
+                kmax = Lq + Lt_pad + 2
+                if use_spec:
+                    co_d = realign_mask_device(*(dev(x) for x in (
+                        rect, corner, tLv, loF_c, hiF_c, loF_r, hiF_r, loE_c,
+                        hiE_c, loE_r, hiE_r)))
+                else:
+                    co_d = dev(co)
+                b_mac, i2_d, j2_d, p_mm_d, _sc, _pf = fb_mac_rows(
+                    qp, qtr, dev(tp), dev(ttr), co_d, shift, mact, None,
+                    dev(ss0) if need_ss else None, local=self.local,
+                    t_L=dev(t_Ls), ss_table=ss_table)
+                packed_d = mac_walk_packed8(
+                    b_mac, p_mm_d, i2_d, j2_d,
+                    torch.zeros(B, device=device), kmax)
+                del co_d, b_mac, p_mm_d, _sc, _pf, ss_table
+
+            with annotate("posterior_fetch_wait"):
+                (_score, i2, j2, n, mm_count, empty, st, ii,
+                 jj, post) = mac_walk_unpack8(packed_d.cpu().numpy(), kmax)
+
+            with annotate("host_realign_write"):
+                for b, (hit, t, _co_h) in enumerate(part):
+                    saved = (hit.score, hit.score_ss, hit.score_aass,
+                             hit.Pval, hit.Pvalt, hit.logPval, hit.logPvalt,
+                             hit.Eval, hit.logEval, hit.Probab)
+                    hit.i2 = int(i2[b])
+                    hit.j2 = int(j2[b])
+                    if empty[b]:
+                        hit.matched_cols = 1
+                        hit.i = np.array([hit.i2], np.int32)
+                        hit.j = np.array([hit.j2], np.int32)
+                        hit.states = np.zeros(1, np.int8)
+                        hit.nsteps = 0
+                        hit.i1 = hit.i2
+                        hit.j1 = hit.j2
+                        hit.alt_i = [hit.i2]
+                        hit.alt_j = [hit.j2]
+                        P_post = np.zeros(1, np.float32)
+                    else:
+                        nb = int(n[b])
+                        hit.nsteps = nb
+                        hit.i = np.zeros(nb + 1, np.int32)
+                        hit.j = np.zeros(nb + 1, np.int32)
+                        hit.states = np.zeros(nb + 1, np.int8)
+                        hit.i[1:] = ii[b, :nb]
+                        hit.j[1:] = jj[b, :nb]
+                        hit.states[1:] = st[b, :nb]
+                        hit.states[nb] = MM       # reference overwrite
+                        hit.matched_cols = 1 + int(mm_count[b])
+                        hit.i1 = int(hit.i[nb])
+                        hit.j1 = int(hit.j[nb])
+                        hit.alt_i = ii[b, :nb].astype(np.int64)
+                        hit.alt_j = jj[b, :nb].astype(np.int64)
+                        # posteriors only at MM steps (the host gathers
+                        # AFTER the terminal-state MM overwrite, so the
+                        # last step's posterior is included either way)
+                        P_post = np.zeros(nb + 1, np.float32)
+                        mm_mask = hit.states[1:] == MM
+                        P_post[1:][mm_mask] = post[b, :nb][mm_mask]
+                    self._rescore_mac_path(q, t, hit, None, corr,
+                                           P_post=P_post)
+                    (hit.score, hit.score_ss, hit.score_aass, hit.Pval,
+                     hit.Pvalt, hit.logPval, hit.logPvalt, hit.Eval,
+                     hit.logEval, hit.Probab) = saved
+                    hit.P_MM = None
 
     def _forward(self, q, t, hit, p_mm, co, shift, scale):
         """hhforwardalgorithm.cpp:10-220 (double precision, row scaled)."""

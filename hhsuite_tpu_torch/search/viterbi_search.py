@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time as _time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,7 +45,7 @@ from ..ops.viterbi_lanes import (viterbi_backtrace_lanes,
 from ..ops.viterbi_rows import viterbi_batch_rows
 from ..parallel.mesh import (get_mesh, sharded_lanes_scores,
                              sharded_viterbi_backtrace)
-from ..profiling import annotate, stage_add
+from ..profiling import annotate, held, stage_add
 
 FLT_MAX = float(np.finfo(np.float32).max)
 
@@ -379,7 +378,7 @@ class ResidentTemplatePack:
         """Upload any templates not yet resident.  ``items`` are
         (name, PRE-division HMM) — e.g. the parsed-HMM cache entries
         from get_template_hmm_prepared, read-only."""
-        with self.lock:
+        with held(self.lock):
             self._ensure(items)
 
     def _ensure(self, items: List[Tuple[str, HMM]]):
@@ -422,7 +421,7 @@ class ResidentTemplatePack:
     def projected_bytes(self, items: List[Tuple[str, HMM]]) -> int:
         """Device footprint AFTER ensure(items) would run, mirroring
         its bucket/pow2-capacity allocation math."""
-        with self.lock:
+        with held(self.lock):
             return self._projected_bytes(items)
 
     def _projected_bytes(self, items: List[Tuple[str, HMM]]) -> int:
@@ -448,7 +447,7 @@ class ResidentTemplatePack:
         by the per-lane null model ``pnul`` (Bp, 20): (tp, ttr, t_L) in
         the JAX shapes, tp/ttr as views of lanes-last storage.  Lanes
         past ``names`` read the null (all-padding) row."""
-        with self.lock:
+        with held(self.lock):
             bk = self.buckets[Lt_pad]
             idx = np.full(Bp, bk["cap"] - 1, dtype=np.int64)
             for k, name in enumerate(names):
@@ -606,8 +605,115 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
     qp_real_d = _host_to(q.p.astype(np.float32), dev)
     qtr_real_d = _host_to(q.tr.astype(np.float32), dev)
 
+    def _prep_batch(bucket_lt, idxs):
+        """One backtrace batch's inputs on the device (the pack's gather
+        or a per-batch pack, the exclusion bands or mask, the SS table)
+        and its kernel; counts the launch's lanes and cells."""
+        batch = [tmpl_list[i] for i in idxs]
+        # quantize the lane count: a power of two below 256, a
+        # multiple of 256 above
+        nb = len(batch)
+        if nb <= 256:
+            Bp = 1 << max(0, nb - 1).bit_length()
+        else:
+            Bp = -(-nb // 256) * 256
+        Bp = min(batch_size, Bp)
+        if bucket_lt is not None:
+            Lt_max = bucket_lt
+            tp, ttr, t_L = pack.gather(
+                bucket_lt, [pack_names[i] for i in idxs],
+                _pnul_lanes(idxs, Bp), Bp)
+        else:
+            Lt_max = -(-max(t.L for t in batch) // 64) * 64
+            tp, ttr, t_L = to_device_pack(
+                *pack_templates(batch, Lt_max, B=Bp), dev)
+        # ss_hmm_mode is derived from SS-data availability
+        # UNCONDITIONALLY (the runner computes it regardless of
+        # -ssm, hhviterbirunner.cpp:14-22, and ScoreForBacktrace
+        # then reports a nonzero score_ss that feeds score_aass
+        # even for -ssm 0); the DP itself adds SS only for ssm=2
+        # (hhviterbi.cpp:175 gates on SCORE_ALIGNMENT)
+        ss_hmm_mode = compute_ss_hmm_mode(q, batch)
+        ss_in_dp = par.ssm == 2 and ss_hmm_mode != NO_SS_INFORMATION
+
+        # the pack path's kernels see the Lq-bucketed query view
+        Lq = Lq_use if bucket_lt is not None else q.L
+        qp_k = qp_d if bucket_lt is not None else qp_real_d
+        qtr_k = qtr_d if bucket_lt is not None else qtr_real_d
+        kmax = Lq + Lt_max + 1
+        has_excl = any(exclude.get(i) for i in idxs)
+        has_str = bool(par.exclstr or par.template_exclstr)
+        cell_off = None
+        if has_excl and not has_str:
+            # the altali exclusion mask is built on the device from
+            # band intervals: O(B*P*(Lq+Lt)) int16 cross to the card
+            # instead of the O(B*Lq*Lt) bool mask
+            P = max(len(exclude.get(i, [])) for i in idxs)
+            Wj = Lt_max + 1
+            lo_c = np.ones((Bp, P, Wj), np.int16)
+            hi_c = np.zeros((Bp, P, Wj), np.int16)
+            lo_r = np.ones((Bp, P, Lq + 1), np.int16)
+            hi_r = np.zeros((Bp, P, Lq + 1), np.int16)
+            for b, i in enumerate(idxs):
+                for p, (pi, pj) in enumerate(exclude.get(i, [])):
+                    lc, hc, lr, hr = V.band_intervals(
+                        np.asarray(pi)[1:], np.asarray(pj)[1:], 40,
+                        q.L, tmpl_list[i].L, Lq + 1, Wj)
+                    lo_c[b, p] = lc
+                    hi_c[b, p] = hc
+                    lo_r[b, p] = lr
+                    hi_r[b, p] = hr
+            cell_off = V.exclusion_mask_device(
+                *(_host_to(x, dev) for x in (lo_c, hi_c, lo_r, hi_r)))
+        elif has_excl or has_str:
+            co = np.zeros((Bp, Lq + 1, Lt_max + 1), dtype=bool)
+            for b, i in enumerate(idxs):
+                for (pi, pj) in exclude.get(i, []):
+                    V.exclude_alignment_mask(co[b], pi, pj, Lq,
+                                             tmpl_list[i].L)
+            if has_str:
+                # region masks also apply to the Viterbi stage
+                # (hhviterbirunner.cpp:156-165)
+                from .posterior import apply_exclstr
+
+                for b, i in enumerate(idxs):
+                    apply_exclstr(co[b], par.exclstr,
+                                  par.template_exclstr, Lq,
+                                  tmpl_list[i].L)
+            cell_off = _host_to(co, dev)
+
+        ss_kw = {}
+        if ss_in_dp:
+            # K3's SS term as the table K6 reads (SS queries are
+            # never Lq-bucketed: Lq == q.L); padded lanes have
+            # t_L = 0, so their term is 0
+            lut, qidx, tidx = build_ss_lut(q, batch, ss_hmm_mode,
+                                           par.ssw, S73, S37, S33,
+                                           Lt_max)
+            tidx = np.pad(tidx, ((0, Bp - len(batch)), (0, 0)))
+            ss_kw = dict(ss_lut=_host_to(lut, dev),
+                         ss_qidx=_host_to(qidx, dev),
+                         ss_tidx=_host_to(tidx, dev))
+
+        # hot path: K2 over the gathered batch; else K3 (altali
+        # exclusion masks, SS in the DP, global mode, long queries,
+        # per-batch packing)
+        hot = (bucket_lt is not None and cell_off is None
+               and not ss_kw and bool(par.loc) and Lq <= 512)
+        bt_kw = dict(cell_off=cell_off, ss_kw=ss_kw,
+                     local=bool(par.loc), Lq_true=q.L, egq=par.egq,
+                     egt=par.egt)
+        variant = "k2" if hot else "k3" + (
+            "_co" if cell_off is not None else "") + ("_ss" if ss_kw else "")
+        stage_add({
+            "bt_launches." + variant: 1,
+            "bt_lanes." + variant: len(batch),
+            "bt_cells." + variant: q.L * sum(t.L for t in batch),
+            "bt_cells_padded." + variant: Bp * Lq * Lt_max})
+        return batch, ss_hmm_mode, qp_k, qtr_k, tp, ttr, t_L, kmax, hot, \
+            bt_kw
+
     def _run_junk(junk):
-        _t_p1 = _time.perf_counter()
         pending = []
         if pack is not None:
             # resident-pack path: group by length bucket, batches are
@@ -624,100 +730,9 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
             batches = [(None, junk[s: s + batch_size])
                        for s in range(0, len(junk), batch_size)]
         for bucket_lt, idxs in batches:
-            batch = [tmpl_list[i] for i in idxs]
-            # quantize the lane count: a power of two below 256, a
-            # multiple of 256 above
-            nb = len(batch)
-            if nb <= 256:
-                Bp = 1 << max(0, nb - 1).bit_length()
-            else:
-                Bp = -(-nb // 256) * 256
-            Bp = min(batch_size, Bp)
-            if bucket_lt is not None:
-                Lt_max = bucket_lt
-                tp, ttr, t_L = pack.gather(
-                    bucket_lt, [pack_names[i] for i in idxs],
-                    _pnul_lanes(idxs, Bp), Bp)
-            else:
-                Lt_max = -(-max(t.L for t in batch) // 64) * 64
-                tp, ttr, t_L = to_device_pack(
-                    *pack_templates(batch, Lt_max, B=Bp), dev)
-            # ss_hmm_mode is derived from SS-data availability
-            # UNCONDITIONALLY (the runner computes it regardless of
-            # -ssm, hhviterbirunner.cpp:14-22, and ScoreForBacktrace
-            # then reports a nonzero score_ss that feeds score_aass
-            # even for -ssm 0); the DP itself adds SS only for ssm=2
-            # (hhviterbi.cpp:175 gates on SCORE_ALIGNMENT)
-            ss_hmm_mode = compute_ss_hmm_mode(q, batch)
-            ss_in_dp = par.ssm == 2 and ss_hmm_mode != NO_SS_INFORMATION
-
-            # the pack path's kernels see the Lq-bucketed query view
-            Lq = Lq_use if bucket_lt is not None else q.L
-            qp_k = qp_d if bucket_lt is not None else qp_real_d
-            qtr_k = qtr_d if bucket_lt is not None else qtr_real_d
-            kmax = Lq + Lt_max + 1
-            has_excl = any(exclude.get(i) for i in idxs)
-            has_str = bool(par.exclstr or par.template_exclstr)
-            cell_off = None
-            if has_excl and not has_str:
-                # the altali exclusion mask is built on the device from
-                # band intervals: O(B*P*(Lq+Lt)) int16 cross to the card
-                # instead of the O(B*Lq*Lt) bool mask
-                P = max(len(exclude.get(i, [])) for i in idxs)
-                Wj = Lt_max + 1
-                lo_c = np.ones((Bp, P, Wj), np.int16)
-                hi_c = np.zeros((Bp, P, Wj), np.int16)
-                lo_r = np.ones((Bp, P, Lq + 1), np.int16)
-                hi_r = np.zeros((Bp, P, Lq + 1), np.int16)
-                for b, i in enumerate(idxs):
-                    for p, (pi, pj) in enumerate(exclude.get(i, [])):
-                        lc, hc, lr, hr = V.band_intervals(
-                            np.asarray(pi)[1:], np.asarray(pj)[1:], 40,
-                            q.L, tmpl_list[i].L, Lq + 1, Wj)
-                        lo_c[b, p] = lc
-                        hi_c[b, p] = hc
-                        lo_r[b, p] = lr
-                        hi_r[b, p] = hr
-                cell_off = V.exclusion_mask_device(
-                    *(_host_to(x, dev) for x in (lo_c, hi_c, lo_r, hi_r)))
-            elif has_excl or has_str:
-                co = np.zeros((Bp, Lq + 1, Lt_max + 1), dtype=bool)
-                for b, i in enumerate(idxs):
-                    for (pi, pj) in exclude.get(i, []):
-                        V.exclude_alignment_mask(co[b], pi, pj, Lq,
-                                                 tmpl_list[i].L)
-                if has_str:
-                    # region masks also apply to the Viterbi stage
-                    # (hhviterbirunner.cpp:156-165)
-                    from .posterior import apply_exclstr
-
-                    for b, i in enumerate(idxs):
-                        apply_exclstr(co[b], par.exclstr,
-                                      par.template_exclstr, Lq,
-                                      tmpl_list[i].L)
-                cell_off = _host_to(co, dev)
-
-            ss_kw = {}
-            if ss_in_dp:
-                # K3's SS term as the table K6 reads (SS queries are
-                # never Lq-bucketed: Lq == q.L); padded lanes have
-                # t_L = 0, so their term is 0
-                lut, qidx, tidx = build_ss_lut(q, batch, ss_hmm_mode,
-                                               par.ssw, S73, S37, S33,
-                                               Lt_max)
-                tidx = np.pad(tidx, ((0, Bp - len(batch)), (0, 0)))
-                ss_kw = dict(ss_lut=_host_to(lut, dev),
-                             ss_qidx=_host_to(qidx, dev),
-                             ss_tidx=_host_to(tidx, dev))
-
-            # hot path: K2 over the gathered batch; else K3 (altali
-            # exclusion masks, SS in the DP, global mode, long queries,
-            # per-batch packing)
-            hot = (bucket_lt is not None and cell_off is None
-                   and not ss_kw and bool(par.loc) and Lq <= 512)
-            bt_kw = dict(cell_off=cell_off, ss_kw=ss_kw,
-                         local=bool(par.loc), Lq_true=q.L, egq=par.egq,
-                         egt=par.egt)
+            with annotate("vit_bt_prep"):
+                (batch, ss_hmm_mode, qp_k, qtr_k, tp, ttr, t_L, kmax, hot,
+                 bt_kw) = _prep_batch(bucket_lt, idxs)
             with annotate("viterbi_backtrace_pass"):
                 # the batch's kernel and the walk W1 of its bt: only an
                 # int8 state string + header per lane reaches the host,
@@ -729,16 +744,13 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                 else:
                     packed = backtrace_batch(qp_k, qtr_k, tp, ttr, t_L,
                                              shift, kmax, hot, **bt_kw)
-                del cell_off, bt_kw
+                del bt_kw
             pending.append((idxs, batch, ss_hmm_mode, packed, kmax))
         # one wait for the whole junk: the payloads come to the host once
         # every batch has been launched
-        _t_f = _time.perf_counter()
-        pending = [(idxs, batch, mode, _payload(packed), kmax)
-                   for idxs, batch, mode, packed, kmax in pending]
-        now = _time.perf_counter()
-        stage_add("vit_payload_fetch", now - _t_f)
-        stage_add("host_vit_dispatch", now - _t_p1)
+        with annotate("vit_payload_fetch"):
+            pending = [(idxs, batch, mode, _payload(packed), kmax)
+                       for idxs, batch, mode, packed, kmax in pending]
 
         from ..native import load as _load_native
 
@@ -750,58 +762,57 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
             # to the loop below ----
             if (ss_hmm_mode == NO_SS_INFORMATION and nat is not None
                     and hasattr(nat, "vit_decode_rescore")):
-                _t_hb = _time.perf_counter()
-                # raw handouts ship their pnul for the in-C division;
-                # divided lanes get an all-ones row (x / 1.0f == x)
-                nb_real = len(idxs)
-                t_ps = [batch[b].p for b in range(nb_real)]
-                pn = None
-                if any(not getattr(batch[b], "p_divided", True)
-                       for b in range(nb_real)):
-                    pn = np.ones((nb_real, 20), np.float32)
-                    for b in range(nb_real):
-                        if not getattr(batch[b], "p_divided", True):
-                            pn[b] = batch[b].pnul_used
-                dec = V.decode_rescore_native(
-                    packed_np, kmax, q_p32, t_ps, par.corr, nat, pnul=pn)
-                sc_l = dec.score.tolist()
-                n_l = dec.n.tolist()
-                m_l = dec.matched.tolist()
-                i2_l = dec.i2.tolist()
-                j2_l = dec.j2.tolist()
-                for b, tid in enumerate(idxs):
-                    t = batch[b]
-                    nb = n_l[b]
-                    sc = sc_l[b]
-                    hit = Hit()
-                    hit.init_from_hmm(q, t, par.nseqdis, par.ssm)
-                    hit.entry = templates[tid][0]
-                    hit.file = t.file
-                    hit.lastrep = 1 if sc <= smin else 0
-                    hit.score = sc
-                    hit.score_ss = 0.0
-                    hit.score_aass = -sc
-                    # VIEWS into the batch decode arrays, not copies
-                    # (nothing writes through them: realign reassigns
-                    # fresh arrays)
-                    hit.S = dec.S2[b, : nb + 1]
-                    hit.S_ss = dec.zss[: nb + 1]
-                    hit.i = dec.ii2[b, : nb + 1]
-                    hit.j = dec.jj2[b, : nb + 1]
-                    hit.states = dec.st2[b, : nb + 1]
-                    hit.nsteps = nb
-                    hit.matched_cols = m_l[b]
-                    hit.i1 = int(dec.ii2[b, nb])
-                    hit.j1 = int(dec.jj2[b, nb])
-                    hit.i2 = i2_l[b]
-                    hit.j2 = j2_l[b]
-                    hit.irep = alignment + 1
-                    hits.append(hit)
-                    if sc > smin:
-                        next_alive.append(tid)
-                        exclude.setdefault(tid, []).append(
-                            (hit.i.copy(), hit.j.copy()))
-                stage_add("host_hitbuild", _time.perf_counter() - _t_hb)
+                with annotate("host_hitbuild"):
+                    # raw handouts ship their pnul for the in-C division;
+                    # divided lanes get an all-ones row (x / 1.0f == x)
+                    nb_real = len(idxs)
+                    t_ps = [batch[b].p for b in range(nb_real)]
+                    pn = None
+                    if any(not getattr(batch[b], "p_divided", True)
+                           for b in range(nb_real)):
+                        pn = np.ones((nb_real, 20), np.float32)
+                        for b in range(nb_real):
+                            if not getattr(batch[b], "p_divided", True):
+                                pn[b] = batch[b].pnul_used
+                    dec = V.decode_rescore_native(
+                        packed_np, kmax, q_p32, t_ps, par.corr, nat, pnul=pn)
+                    sc_l = dec.score.tolist()
+                    n_l = dec.n.tolist()
+                    m_l = dec.matched.tolist()
+                    i2_l = dec.i2.tolist()
+                    j2_l = dec.j2.tolist()
+                    for b, tid in enumerate(idxs):
+                        t = batch[b]
+                        nb = n_l[b]
+                        sc = sc_l[b]
+                        hit = Hit()
+                        hit.init_from_hmm(q, t, par.nseqdis, par.ssm)
+                        hit.entry = templates[tid][0]
+                        hit.file = t.file
+                        hit.lastrep = 1 if sc <= smin else 0
+                        hit.score = sc
+                        hit.score_ss = 0.0
+                        hit.score_aass = -sc
+                        # VIEWS into the batch decode arrays, not copies
+                        # (nothing writes through them: realign reassigns
+                        # fresh arrays)
+                        hit.S = dec.S2[b, : nb + 1]
+                        hit.S_ss = dec.zss[: nb + 1]
+                        hit.i = dec.ii2[b, : nb + 1]
+                        hit.j = dec.jj2[b, : nb + 1]
+                        hit.states = dec.st2[b, : nb + 1]
+                        hit.nsteps = nb
+                        hit.matched_cols = m_l[b]
+                        hit.i1 = int(dec.ii2[b, nb])
+                        hit.j1 = int(dec.jj2[b, nb])
+                        hit.i2 = i2_l[b]
+                        hit.j2 = j2_l[b]
+                        hit.irep = alignment + 1
+                        hits.append(hit)
+                        if sc > smin:
+                            next_alive.append(tid)
+                            exclude.setdefault(tid, []).append(
+                                (hit.i.copy(), hit.j.copy()))
                 continue
             unpack = V.backtrace_walk_unpack8(packed_np, kmax)
             score, i2, j2 = unpack.score, unpack.i2, unpack.j2
@@ -833,60 +844,59 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                         svals = np.zeros(0, np.float32)
                     s_off = 0
 
-            _t_hb = _time.perf_counter()
-            for b, tid in enumerate(idxs):
-                t = batch[b]
-                if batch_rescore:
-                    (i_steps, j_steps, states, matched_cols, mm,
-                     nmi) = decoded[b]
-                    nsteps = len(i_steps) - 1
-                    S = np.zeros(nsteps + 1, dtype=np.float32)
-                    S_ss = np.zeros(nsteps + 1, dtype=np.float32)
-                    if nmi:
-                        S[1:][mm] = svals[s_off: s_off + nmi]
-                        s_off += nmi
-                    sc_ss, corr_term = nat.backtrace_score_terms(
-                        np.ascontiguousarray(S),
-                        np.ascontiguousarray(S_ss), int(nsteps),
-                        float(np.float32(par.corr)))
-                    sc = np.float32(score[b])
-                    if nsteps:
-                        sc = np.float32(sc + np.float32(corr_term))
-                    sc = float(sc)
-                    sc_ss = float(np.float32(sc_ss))
-                else:
-                    i_steps, j_steps, states, matched_cols = unpack(b)
-                    sc, sc_ss, S, S_ss = score_for_backtrace(
-                        q, t, float(score[b]), i_steps, j_steps, states,
-                        ss_hmm_mode, par.ssw, par.ssm, par.corr,
-                        S73, S37, S33)
-                hit = Hit()
-                hit.init_from_hmm(q, t, par.nseqdis, par.ssm)
-                hit.entry = templates[tid][0]
-                hit.file = t.file
-                hit.lastrep = 1 if sc <= smin else 0
-                hit.score = sc
-                hit.score_ss = sc_ss
-                hit.score_aass = -sc
-                hit.S = S
-                hit.S_ss = S_ss
-                hit.i = i_steps
-                hit.j = j_steps
-                hit.states = states
-                hit.nsteps = len(i_steps) - 1
-                hit.matched_cols = matched_cols
-                hit.i1 = int(i_steps[-1])
-                hit.j1 = int(j_steps[-1])
-                hit.i2 = int(i2[b])
-                hit.j2 = int(j2[b])
-                hit.irep = alignment + 1
-                hits.append(hit)
+            with annotate("host_hitbuild"):
+                for b, tid in enumerate(idxs):
+                    t = batch[b]
+                    if batch_rescore:
+                        (i_steps, j_steps, states, matched_cols, mm,
+                         nmi) = decoded[b]
+                        nsteps = len(i_steps) - 1
+                        S = np.zeros(nsteps + 1, dtype=np.float32)
+                        S_ss = np.zeros(nsteps + 1, dtype=np.float32)
+                        if nmi:
+                            S[1:][mm] = svals[s_off: s_off + nmi]
+                            s_off += nmi
+                        sc_ss, corr_term = nat.backtrace_score_terms(
+                            np.ascontiguousarray(S),
+                            np.ascontiguousarray(S_ss), int(nsteps),
+                            float(np.float32(par.corr)))
+                        sc = np.float32(score[b])
+                        if nsteps:
+                            sc = np.float32(sc + np.float32(corr_term))
+                        sc = float(sc)
+                        sc_ss = float(np.float32(sc_ss))
+                    else:
+                        i_steps, j_steps, states, matched_cols = unpack(b)
+                        sc, sc_ss, S, S_ss = score_for_backtrace(
+                            q, t, float(score[b]), i_steps, j_steps, states,
+                            ss_hmm_mode, par.ssw, par.ssm, par.corr,
+                            S73, S37, S33)
+                    hit = Hit()
+                    hit.init_from_hmm(q, t, par.nseqdis, par.ssm)
+                    hit.entry = templates[tid][0]
+                    hit.file = t.file
+                    hit.lastrep = 1 if sc <= smin else 0
+                    hit.score = sc
+                    hit.score_ss = sc_ss
+                    hit.score_aass = -sc
+                    hit.S = S
+                    hit.S_ss = S_ss
+                    hit.i = i_steps
+                    hit.j = j_steps
+                    hit.states = states
+                    hit.nsteps = len(i_steps) - 1
+                    hit.matched_cols = matched_cols
+                    hit.i1 = int(i_steps[-1])
+                    hit.j1 = int(j_steps[-1])
+                    hit.i2 = int(i2[b])
+                    hit.j2 = int(j2[b])
+                    hit.irep = alignment + 1
+                    hits.append(hit)
 
-                if sc > smin:
-                    next_alive.append(tid)
-                    exclude.setdefault(tid, []).append(
-                        (i_steps.copy(), j_steps.copy()))
-            stage_add("host_hitbuild", _time.perf_counter() - _t_hb)
+                    if sc > smin:
+                        next_alive.append(tid)
+                        exclude.setdefault(tid, []).append(
+                            (i_steps.copy(), j_steps.copy()))
 
     def _lanes_scores(junk) -> np.ndarray:
         """Score-only sweep over one junk, per chunk K6 with the SS LUT
@@ -1009,18 +1019,22 @@ def viterbi_search(par: Parameters, q: HMM, templates: List[Tuple[str, HMM]],
                 keep = (scores >= cutoff) | (scores > par.smin - 2.0)
                 full = [junk[k] for k in range(len(junk)) if keep[k]]
                 _run_junk(full)
-                for k in range(len(junk)):
-                    if not keep[k]:
-                        hits.append(_make_light_hit(junk[k],
-                                                    float(scores[k])))
-                stage_add("funnel_blocks", 1)
-                if len(full) >= 0.9 * len(junk):
-                    # funnel-degenerate workload (near-identical
-                    # templates score above the keep thresholds): the
-                    # sweep filters nothing, so drop it for the
-                    # remaining blocks — identical output
-                    funnel_on = False
-                    stage_add("funnel_dropped", 1)
+                with annotate("vit_light_hits"):
+                    for k in range(len(junk)):
+                        if not keep[k]:
+                            hits.append(_make_light_hit(junk[k],
+                                                        float(scores[k])))
+                # funnel-degenerate workload (near-identical templates
+                # score above the keep thresholds): the sweep filters
+                # nothing, so drop it for the remaining blocks —
+                # identical output
+                dropped = len(full) >= 0.9 * len(junk)
+                funnel_on = not dropped
+                stage_add({"funnel_blocks": 1,
+                           "funnel_dropped": int(dropped),
+                           "funnel_swept": len(junk),
+                           "funnel_full": len(full),
+                           "funnel_light": len(junk) - len(full)})
             else:
                 _run_junk(junk)
             if alignment == 0 and par.early_stopping_filter:
