@@ -56,6 +56,20 @@ _CF2I[ord(".")] = 0
 for _d in range(10):
     _CF2I[ord("0") + _d] = _d + 1
 
+# the kinds of record from_a3m_text reads, and the characters each keeps
+# (hhalignment.cpp:400-480), by code point & 0xFF; ss2ss's output by code
+# point for the SS rows
+(_REC_NONE, _REC_AA, _REC_SS_DSSP, _REC_SA, _REC_SS_PRED, _REC_CONF,
+ _REC_DISPLAY) = range(7)
+_REC_KEEPS = np.zeros((7, 256), dtype=bool)
+_REC_KEEPS[_REC_AA] = AA2I_TABLE >= 0
+_REC_KEEPS[_REC_SS_DSSP] = (_SS2I >= 0) & (_SS2I <= 7)
+_REC_KEEPS[_REC_SA] = _SA2I >= 0
+_REC_KEEPS[_REC_SS_PRED] = (_SS2I >= 0) & (_SS2I <= 3)
+for _c in b"-.0123456789":
+    _REC_KEEPS[_REC_CONF, _c] = _REC_KEEPS[_REC_DISPLAY, _c] = True
+_REC_KEEPS[_REC_DISPLAY, [ord("A"), ord("B")]] = True
+
 I2SS = "-HECSTGBI"
 I2SA = "-ABCDEF"
 I2CF = "-0123456789"
@@ -82,6 +96,84 @@ def insert_chr(c: str) -> str:
     if ("0" <= c <= "9") or c == "-":
         return "."
     return c
+
+
+# the codes of an a3m's match states (-M a3m): residues, SS states, SA
+# states, SS confidences
+_M1_CODES = np.stack([AA2I_TABLE, _SS2I, _SA2I, _CF2I]).astype(np.int8)
+
+# ss2ss, match_chr, insert_chr and str.isalpha as tables over the latin-1
+# characters
+_SS2SS = np.array([ord(ss2ss(chr(c))) for c in range(256)], dtype=np.uint32)
+_MATCH_CHR = np.array([ord(match_chr(chr(c))) for c in range(256)],
+                      dtype=np.uint8)
+_INSERT_CHR = np.array([ord(insert_chr(chr(c))) for c in range(256)],
+                       dtype=np.uint8)
+_ISALPHA = np.array([chr(c).isalpha() for c in range(256)], dtype=bool)
+
+
+# what each kind of record writes for a kept character: ss2ss's letter in
+# the SS rows, the character elsewhere (by code point & 0xFF: characters
+# past 0xFF are the SS rows' '-' and themselves elsewhere)
+_REC_SS = np.zeros(7, dtype=bool)
+_REC_SS[[_REC_SS_DSSP, _REC_SS_PRED]] = True
+_REC_OUT = np.where(_REC_SS[:, None], _SS2SS[None, :],
+                    np.arange(256, dtype=np.uint32)[None, :]).astype("<u4")
+
+
+def _codepoints(s: str) -> np.ndarray:
+    """The code points of ``s``, one uint32 a character."""
+    return np.frombuffer(s.encode("utf-32-le", "surrogatepass"), dtype="<u4")
+
+
+def _latin1(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
+
+
+def _filter_records(texts: List[str], kinds: np.ndarray) -> List[str]:
+    """The characters of each record's text that its kind keeps
+    (``_REC_*``), the SS rows' through ss2ss: one code-point array for
+    all records, looked up by code point & 0xFF like the reference's
+    char tables; the digits of the SS confidence and display rows are
+    str.isdigit's."""
+    cp = _codepoints("".join(texts))
+    rec = np.repeat(np.arange(len(texts)),
+                    np.fromiter(map(len, texts), np.int64, len(texts)))
+    kind = kinds[rec]
+    low = cp & 0xFF
+    keep = _REC_KEEPS[kind, low]
+    out = _REC_OUT[kind, low]
+    if cp.max(initial=0) >= 128:
+        wide = cp >= 128
+        digits = wide & ((kind == _REC_CONF) | (kind == _REC_DISPLAY))
+        keep[digits] = [chr(c).isdigit() for c in cp[digits].tolist()]
+        big = cp >= 256
+        out[big] = np.where(_REC_SS[kind[big]], ord("-"), cp[big])
+    kept = out[keep].tobytes().decode("utf-32-le", "surrogatepass")
+    ends = np.cumsum(np.bincount(rec[keep], minlength=len(texts))).tolist()
+    return [kept[a:b] for a, b in zip([0] + ends[:-1], ends)]
+
+
+def filter_windows(L: int, wfil: int):
+    """The windows [j0, j1] of filter2's windowed max of N for columns
+    i = 1..L (hhalignment.cpp:1816-1831): [i - wfil, i + wfil] clamped to
+    lie inside 1..L, 2 * wfil columns wide at the ends."""
+    i = np.arange(1, L + 1)
+    j0 = np.maximum(1, np.minimum(L - 2 * wfil + 1, i - wfil))
+    j1 = np.minimum(L, np.maximum(2 * wfil, i + wfil))
+    return j0, j1
+
+
+def window_max(v: np.ndarray, j0: np.ndarray, j1: np.ndarray) -> np.ndarray:
+    """The max of v[j0 - 1 .. j1 - 1] for each window: the larger of two
+    power-of-two blocks that cover it (a sparse table's lookup), the
+    blocks as wide as the narrowest window allows."""
+    w = int((j1 - j0).min()) + 1
+    p, span = v, 1
+    while 2 * span <= w:                  # p[i]: max of v[i : i + span]
+        p = np.maximum(p[:-span], p[span:])
+        span *= 2
+    return np.maximum(p[j0 - 1], p[j1 - span])
 
 
 def qsort_int(v: np.ndarray, k: List[int], left: int, right: int, up: int):
@@ -173,7 +265,7 @@ class Alignment:
         self.file = base.rsplit(".", 1)[0] if "." in base else base
 
         names: List[str] = []
-        raw: List[List[str]] = []
+        raw: List[List[str]] = []     # a record's sequence lines
         keep: List[int] = []
         display: List[int] = []
         skip_sequence = False
@@ -262,36 +354,27 @@ class Alignment:
                 self.longname = rest[:32764]
                 self.name = rest.split()[0][:511] if rest.split() else ""
                 self.readCommentLine = True
-            elif not skip_sequence:
-                if k == -1:
-                    continue
-                # filter valid chars for this sequence class
-                if keep[k] or k == self.kfirst:
-                    tab = AA2I_TABLE
-                    chars = [c for c in line if tab[ord(c) & 0xFF] >= 0]
-                elif k == self.kss_dssp:
-                    chars = [ss2ss(c) for c in line
-                             if 0 <= _SS2I[ord(c) & 0xFF] <= 7]
-                elif k == self.ksa_dssp:
-                    chars = [c for c in line if _SA2I[ord(c) & 0xFF] >= 0]
-                elif k == self.kss_pred:
-                    chars = [ss2ss(c) for c in line
-                             if 0 <= _SS2I[ord(c) & 0xFF] <= 3]
-                elif k == self.kss_conf:
-                    chars = [c for c in line
-                             if c in "-." or c.isdigit()]
-                elif display[k]:
-                    chars = [c for c in line
-                             if c in "-.AB" or c.isdigit()]
-                else:
-                    chars = []
-                raw[k].extend(chars)
+            elif not skip_sequence and k >= 0:
+                raw[k].append(line)
 
         if k < 0:
             raise ValueError(f"No sequences found in file {infile}")
         self.N_in = k + 1
         self.names = names
-        self.seqs = ["-" + "".join(r) for r in raw]
+        # the characters valid for each record's class
+        kinds = np.full(self.N_in, _REC_NONE, dtype=np.int8)
+        kinds[np.array(display, dtype=bool)] = _REC_DISPLAY
+        for kk, kind in ((self.kss_conf, _REC_CONF),
+                         (self.kss_pred, _REC_SS_PRED),
+                         (self.ksa_dssp, _REC_SA),
+                         (self.kss_dssp, _REC_SS_DSSP)):
+            if kk >= 0:
+                kinds[kk] = kind
+        kinds[np.array(keep, dtype=bool)] = _REC_AA
+        if self.kfirst >= 0:
+            kinds[self.kfirst] = _REC_AA
+        self.seqs = ["-" + s for s in
+                     _filter_records(["".join(r) for r in raw], kinds)]
         self.keep = np.array(keep, dtype=np.int8)
         self.display = np.array(display, dtype=np.int8)
 
@@ -330,8 +413,9 @@ class Alignment:
         N = self.N_in
         # single sequence with few match states -> switch to -M first
         if M == 1:
-            s = self.seqs[self.kfirst][1:]
-            match_states = sum(1 for c in s if ("A" <= c <= "Z") or c == "-")
+            cp = _codepoints(self.seqs[self.kfirst][1:])
+            match_states = int(np.count_nonzero(
+                ((cp >= ord("A")) & (cp <= ord("Z"))) | (cp == ord("-"))))
             if match_states < 6 and self.N_in - self.N_ss <= 1:
                 M = 3
 
@@ -350,36 +434,43 @@ class Alignment:
 
     def _endgap_rewrite(self):
         """Leading/trailing GAP -> ENDGAP for kept sequences (:978-986)."""
-        X = self.X
         L = self.L
-        body = X[:, 1:L + 1]
-        isgap = body == GAP
-        notgap = ~isgap
-        lead = np.cumsum(notgap, axis=1) == 0     # before first non-gap
-        trail = (np.cumsum(notgap[:, ::-1], axis=1) == 0)[:, ::-1]
-        m = (isgap & (lead | trail)) & (self.keep[:, None] > 0)
-        body[m] = ENDGAP
+        body = self.X[:, 1:L + 1]
+        notgap = body != GAP
+        # a row's first and last non-gap column (none: every column leads)
+        first = np.where(notgap.any(axis=1), notgap.argmax(axis=1), L)
+        last = L - 1 - notgap[:, ::-1].argmax(axis=1)
+        col = np.arange(L)
+        m = ~notgap & ((col < first[:, None]) | (col > last[:, None]))
+        body[m & (self.keep[:, None] > 0)] = ENDGAP
 
     def _compress_m1(self, maxres: int, infile: str):
         N = self.N_in
         # remove '.' from all seqs
         self.seqs = [s.replace(".", "") for s in self.seqs]
-        cols = {}
+        # the rows that get match states, and the table of each one's codes
+        tabs = []
         for k in range(N):
-            s = self.seqs[k][1:]
-            if not (self.keep[k] or k in (self.kfirst, self.kss_dssp,
-                                          self.kss_pred, self.ksa_dssp,
-                                          self.kss_conf)):
-                continue
-            arr = np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
-            is_low = (arr >= ord("a")) & (arr <= ord("z"))
-            cols[k] = (arr, is_low, int((~is_low).sum()))
+            if self.keep[k] or k == self.kfirst:
+                tabs.append((k, 0))
+            elif k in (self.kss_dssp, self.kss_pred):
+                tabs.append((k, 1))
+            elif k == self.ksa_dssp:
+                tabs.append((k, 2))
+            elif k == self.kss_conf:
+                tabs.append((k, 3))
+        rows = np.array([k for k, _t in tabs], dtype=np.int64)
+        texts = [self.seqs[k][1:] for k, _t in tabs]
+        b = _latin1("".join(texts))
+        rec = np.repeat(np.arange(len(tabs)),
+                        np.fromiter(map(len, texts), np.int64, len(tabs)))
+        is_low = (b >= ord("a")) & (b <= ord("z"))
+        nmatch = np.bincount(rec[~is_low], minlength=len(tabs))
         # reference tracks L = imin over match-state counts and errors on
         # mismatch (hhalignment.cpp:968-1046)
-        L = min((c[2] for c in cols.values()), default=0)
-        L = min(L, maxres - 2)
+        L = min(int(nmatch.min()), maxres - 2)
         self.L = L
-        if any(min(c[2], maxres - 2) != L for c in cols.values()):
+        if np.any(np.minimum(nmatch, maxres - 2) != L):
             raise ValueError(
                 f"sequences in {infile} do not all have the same number of "
                 f"match states (A3M format error)")
@@ -394,29 +485,22 @@ class Alignment:
         if self.X is not None:
             ncopy = min(self.X.shape[0], N)
             wcopy = min(self.X.shape[1], L + 2)
-            rows = [k for k in range(ncopy) if k not in cols]
-            if rows:
-                X[rows, :wcopy] = self.X[rows, :wcopy]
+            old = np.setdiff1d(np.arange(ncopy), rows)
+            if old.size:
+                X[old, :wcopy] = self.X[old, :wcopy]
                 wI = min(self.I.shape[1], L + 1)
-                I[rows, :wI] = self.I[rows, :wI]
-        for k, (arr, is_low, nmatch) in cols.items():
-            mpos = np.nonzero(~is_low)[0]
-            codes = arr[mpos].astype(np.int64)
-            if self.keep[k] or k == self.kfirst:
-                X[k, 1:L + 1] = AA2I_TABLE[codes[:L]].astype(np.int8)
-                # I[k][i] = number of lowercase inserts between match i and
-                # i+1 (I[k][0]: before the first match state)
-                cl = np.concatenate([[0], np.cumsum(is_low)])
-                before = cl[mpos]  # lowercase count before each match col
-                counts = np.diff(np.concatenate([[0], before,
-                                                 [is_low.sum()]]))
-                I[k, 0:L + 1] = counts[0:L + 1]
-            elif k == self.kss_dssp or k == self.kss_pred:
-                X[k, 1:L + 1] = _SS2I[codes[:L]].astype(np.int8)
-            elif k == self.ksa_dssp:
-                X[k, 1:L + 1] = _SA2I[codes[:L]].astype(np.int8)
-            elif k == self.kss_conf:
-                X[k, 1:L + 1] = _CF2I[codes[:L]].astype(np.int8)
+                I[old, :wI] = self.I[old, :wI]
+        # j: the matches before each character in its row, so match j + 1
+        # for an uppercase one and insert slot j for a lowercase one
+        before = np.cumsum(~is_low) - (~is_low)
+        j = before - np.concatenate(([0], np.cumsum(nmatch)[:-1]))[rec]
+        tab = np.array([t for _k, t in tabs], dtype=np.int64)[rec]
+        m = ~is_low & (j < L)
+        X[rows[rec[m]], 1 + j[m]] = _M1_CODES[tab[m], b[m]]
+        # I[k][i] = number of lowercase inserts between match i and i+1
+        # (I[k][0]: before the first match state), residue rows only
+        ins = is_low & (tab == 0) & (j <= L)
+        np.add.at(I, (rows[rec[ins]], j[ins]), 1)
         self.X = X
         self.I = I
         self._endgap_rewrite()
@@ -433,25 +517,28 @@ class Alignment:
             s = self.seqs[k][1:]
             if len(s) != Lfull:
                 raise ValueError("sequences do not all have the same length")
-            arr = np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
-            codes[k, 1:] = AA2I_TABLE[arr.astype(np.int64)]
+            codes[k, 1:] = AA2I_TABLE[_latin1(s)]
         keepm = self.keep > 0
         Xf = codes
         self.nres = np.zeros(N, dtype=np.int32)
         self.nres[keepm] = (Xf[keepm, 1:] < NAA).sum(axis=1)
-        # quick per-seq weights (hhalignment.cpp:1039-1062)
-        wg = np.full(N, 0.0, dtype=np.float32)
-        Xk = Xf[:, 1:]
+        # quick per-seq weights (hhalignment.cpp:1039-1062): wg[k] +=
+        # 1 / (nl * naa * (nres + 30)) column by column, each sum rounded
+        # to float32 from a double addend (no whole-array accumulate
+        # rounds so), so only that sum runs a column at a time
+        Xk = Xf[:, 1:].astype(np.int64)
+        res = keepm[:, None] & (Xk >= 0) & (Xk < 20)
+        cols = np.broadcast_to(np.arange(Lfull), Xk.shape)
+        nl = np.bincount(cols[res] * 20 + Xk[res],
+                         minlength=Lfull * 20).reshape(Lfull, 20)
+        naa = np.maximum((nl > 0).sum(axis=1), 1)
+        valid = keepm[:, None] & (Xk < 20)
+        denom = ((nl[cols, np.where(valid, Xk, 0)] * naa[None, :])
+                 * (self.nres + 30.0)[:, None])
+        contrib = np.where(valid, 1.0 / np.where(valid, denom, 1.0), 0.0)
+        wg = np.zeros(N, dtype=np.float32)
         for li in range(Lfull):
-            col = Xk[keepm, li]
-            nl = np.bincount(col[col < 20], minlength=20)
-            naa = int((nl > 0).sum()) or 1
-            valid = keepm & (Xf[:, li + 1] < 20)
-            denom = (nl[Xf[valid, li + 1]] * naa
-                     * (self.nres[valid] + 30.0)).astype(np.float64)
-            contrib = np.zeros(N)
-            contrib[valid] = 1.0 / denom
-            wg = (wg.astype(np.float64) + contrib).astype(np.float32)
+            wg = (wg.astype(np.float64) + contrib[:, li]).astype(np.float32)
         self.wg = wg
         # endgap rewrite on full-length matrix
         body = Xf[:, 1:]
@@ -473,13 +560,10 @@ class Alignment:
         for k in range(1, N):
             if len(self.seqs[k]) - 1 != Lfull:
                 raise ValueError("sequences do not all have the same length")
-        firstseq = self.seqs[self.kfirst][1:]
-        is_match = np.array([c.isalpha() for c in firstseq], dtype=bool)
         codes = np.full((N, Lfull + 1), GAP, dtype=np.int16)
         for k in range(N):
-            s = self.seqs[k][1:]
-            arr = np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
-            codes[k, 1:] = AA2I_TABLE[arr.astype(np.int64)]
+            codes[k, 1:] = AA2I_TABLE[_latin1(self.seqs[k][1:])]
+        is_match = _ISALPHA[_latin1(self.seqs[self.kfirst][1:])]
         self._project_match_columns(codes, is_match, maxres, aa_codes=True)
         self._endgap_rewrite()
 
@@ -495,35 +579,26 @@ class Alignment:
         I = np.zeros((N, L + 1), dtype=np.int32)
         newseqs = list(self.seqs)
         for k in range(N):
-            s = self.seqs[k][1:]
             if self.keep[k]:
+                b = _latin1(self.seqs[k][1:])
                 X[k, 1:L + 1] = codes[k, 1:][mcols].astype(np.int8)
                 ins = (~is_match) & (codes[k, 1:] < GAP)
                 # count inserts between consecutive match columns
                 seg = np.searchsorted(mcols, np.nonzero(ins)[0], side="left")
                 I[k, :] = np.bincount(seg, minlength=L + 1)[: L + 1]
-                out = []
-                for li, c in enumerate(s):
-                    if is_match[li]:
-                        out.append(match_chr(c))
-                    elif codes[k, li + 1] < GAP:
-                        out.append(insert_chr(c))
-                newseqs[k] = "-" + "".join(out)
-            elif k in (self.kss_dssp, self.kss_pred):
-                X[k, 1:L + 1] = _SS2I[
-                    np.frombuffer(s.encode("latin-1"),
-                                  dtype=np.uint8).astype(np.int64)][mcols]
-                newseqs[k] = "-" + "".join(match_chr(s[li]) for li in mcols)
-            elif k == self.ksa_dssp:
-                X[k, 1:L + 1] = _SA2I[
-                    np.frombuffer(s.encode("latin-1"),
-                                  dtype=np.uint8).astype(np.int64)][mcols]
-                newseqs[k] = "-" + "".join(match_chr(s[li]) for li in mcols)
-            elif k == self.kss_conf:
-                X[k, 1:L + 1] = _CF2I[
-                    np.frombuffer(s.encode("latin-1"),
-                                  dtype=np.uint8).astype(np.int64)][mcols]
-                newseqs[k] = "-" + "".join(s[li] for li in mcols)
+                out = np.where(is_match, _MATCH_CHR[b],
+                               _INSERT_CHR[b])[is_match | ins]
+                newseqs[k] = "-" + out.tobytes().decode("latin-1")
+            elif k in (self.kss_dssp, self.kss_pred, self.ksa_dssp,
+                       self.kss_conf):
+                b = _latin1(self.seqs[k][1:])[mcols]
+                if k == self.kss_conf:
+                    X[k, 1:L + 1] = _CF2I[b]
+                else:
+                    tab = _SA2I if k == self.ksa_dssp else _SS2I
+                    X[k, 1:L + 1] = tab[b]
+                    b = _MATCH_CHR[b]
+                newseqs[k] = "-" + b.tobytes().decode("latin-1")
         self.seqs = newseqs
         self.X = X
         self.I = I
@@ -671,13 +746,9 @@ class Alignment:
             print("F2KSORT " + " ".join(f"{k}:{int(nres[k])}"
                                         for k in ksort), file=_sys.stderr)
 
-        in_ = np.zeros(N_in, dtype=np.int8)
-        n = 0
-        for k in range(N_in):
-            if keep[k] == 2:
-                in_[k] = 2
-                n += 1
-        inkk = np.array([in_[ksort[kk]] for kk in range(N_in)], dtype=np.int8)
+        in_ = np.where(np.asarray(keep)[:N_in] == 2, 2, 0).astype(np.int8)
+        n = int(np.count_nonzero(in_))
+        inkk = in_[np.asarray(ksort, dtype=np.int64)]
 
         Npos = np.zeros(L + 2, dtype=np.int32)
         kf = self.kfirst
@@ -728,6 +799,7 @@ class Alignment:
         if seqid1 > seqid2:
             return nn
 
+        j0, j1 = filter_windows(L, WFIL)
         # accepted-set arrays for the vectorized pairwise check: row m
         # holds the m-th sequence that entered the comparison set (in
         # ksort order), plus an isaa cumsum row for windowed coverage
@@ -742,23 +814,15 @@ class Alignment:
         seqid_step = 0
         diffNmax_prev = 0
         while seqid <= seqid2:
-            stop = True
             diffNmax_prev = diffNmax
-            diffNmax = 0
             # windowed max of N (hhalignment.cpp:1816-1831)
-            for i in range(1, L + 1):
-                j0 = max(1, min(L - 2 * WFIL + 1, i - WFIL))
-                j1 = min(L, max(2 * WFIL, i + WFIL))
-                mx = int(Npos[j0: j1 + 1].max()) if j1 >= j0 else 0
-                if Nmax[i] < mx:
-                    Nmax[i] = mx
-                if Nmax[i] < Ndiff:
-                    stop = False
-                    idmaxwin[i] = seqid
-                    if diffNmax < Ndiff - Nmax[i]:
-                        diffNmax = Ndiff - Nmax[i]
-            if stop:
+            nmax = Nmax[1: L + 1]
+            np.maximum(nmax, window_max(Npos[1: L + 1], j0, j1), out=nmax)
+            short = nmax < Ndiff
+            if not short.any():
                 break
+            idmaxwin[1: L + 1][short] = seqid
+            diffNmax = int((Ndiff - nmax[short]).max())
 
             # the comparison set for candidate kk is every jj < kk with
             # inkk[jj] != 0; it is rebuilt incrementally per seqid round
@@ -858,29 +922,28 @@ class Alignment:
         return n
 
     def _qsc_sum(self, k: int, S) -> float:
-        """Score-per-column sum with query (hhalignment.cpp:1718-1747)."""
+        """Score-per-column sum with query (hhalignment.cpp:1718-1747):
+        a column where both have a residue scores S; one where one side
+        has a gap against the other's residue costs a gap open, or an
+        extension where that side's previous such column came after its
+        last residue column (an ANY on either side is no column); summed
+        in column order."""
         kf = self.kfirst
-        first, last = self.first, self.last
-        body = self.X[:, 1: self.L + 1]
-        qsc_sum = 0.0
-        gapq = gapk = 0
-        for i in range(first[k], last[k] + 1):
-            xk = body[k, i - 1]
-            xq = body[kf, i - 1]
-            if xk < 20:
-                gapk = 0
-                if xq < 20:
-                    gapq = 0
-                    qsc_sum += float(S[xq, xk])
-                elif xq == ANY:
-                    continue
-                else:
-                    qsc_sum -= PLTY_GAPEXTD if gapq else PLTY_GAPOPEN
-                    gapq += 1
-            elif xk == ANY:
-                continue
-            elif xq < 20:
-                gapq = 0
-                qsc_sum -= PLTY_GAPEXTD if gapk else PLTY_GAPOPEN
-                gapk += 1
-        return qsc_sum
+        sl = slice(self.first[k] - 1, self.last[k])
+        xk = self.X[k, 1: self.L + 1][sl].astype(np.int64)
+        xq = self.X[kf, 1: self.L + 1][sl].astype(np.int64)
+        rk, rq = xk < 20, xq < 20
+        gk, gq = ~rk & (xk != ANY), ~rq & (xq != ANY)
+        term = np.zeros(len(xk), dtype=np.float64)
+        both = rk & rq
+        term[both] = S[xq[both], xk[both]]
+        # a gap in q against a residue of k; q's run of gaps ends where q
+        # has a residue against anything but ANY.  The same for k, whose
+        # run ends at any residue of k
+        for gap, reset in ((rk & gq, rq & (xk != ANY)), (gk & rq, rk)):
+            at = np.flatnonzero(gap | reset)
+            ev = gap[at]
+            ext = ev & np.concatenate(([False], ev[:-1]))
+            term[at[ev]] = -np.where(ext[ev], PLTY_GAPEXTD, PLTY_GAPOPEN)
+        used = both | (rk & gq) | (gk & rq)
+        return float(np.add.accumulate(term[used])[-1]) if used.any() else 0.0

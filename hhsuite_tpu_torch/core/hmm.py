@@ -103,30 +103,28 @@ class HMM:
         pDM = pIM
         gapb = np.float32(gapb)
 
-        i = np.arange(0, L + 1)
-        nm = self.Neff_M[i] - np.float32(1.0)
-        p0 = nm * fm.fpow2(tr[i, M2M]) + gapb * pM2M
-        p1 = nm * fm.fpow2(tr[i, M2D]) + gapb * pM2D
-        p2 = nm * fm.fpow2(tr[i, M2I]) + gapb * pM2I
-        p1[0] = p2[0] = 0.0
-        p1[L] = p2[L] = 0.0
-        s = p0 + p1 + p2 + np.float32(FLT_MIN)
-        tr[i, M2M] = fm.fast_log2(p0 / s)
-        tr[i, M2D] = fm.fast_log2(p1 / s) * np.float32(gapf)
-        tr[i, M2I] = fm.fast_log2(p2 / s) * np.float32(gapg)
-
-        p0 = self.Neff_I[i] * fm.fpow2(tr[i, I2M]) + gapb * pIM
-        p1 = self.Neff_I[i] * fm.fpow2(tr[i, I2I]) + gapb * pII
-        s = p0 + p1 + np.float32(FLT_MIN)
-        tr[i, I2M] = fm.fast_log2(p0 / s)
-        tr[i, I2I] = fm.fast_log2(p1 / s) * np.float32(gapi)
-
-        p0 = self.Neff_D[i] * fm.fpow2(tr[i, D2M]) + gapb * pDM
-        p1 = self.Neff_D[i] * fm.fpow2(tr[i, D2D]) + gapb * pDD
-        p1[L] = 0.0
-        s = p0 + p1 + np.float32(FLT_MIN)
-        tr[i, D2M] = fm.fast_log2(p0 / s)
-        tr[i, D2D] = fm.fast_log2(p1 / s) * np.float32(gaph)
+        # p = Neff * 2^tr + gapb * prior for every transition at once (M's
+        # Neff less 1), normalised over the transitions out of M, I and D
+        n = L + 1
+        neff = np.empty((n, NTRANS), dtype=np.float32)
+        neff[:, M2M:M2D + 1] = (self.Neff_M[:n] - np.float32(1.0))[:, None]
+        neff[:, I2M:I2I + 1] = self.Neff_I[:n, None]
+        neff[:, D2M:D2D + 1] = self.Neff_D[:n, None]
+        prior = np.array([pM2M, pM2I, pM2D, pIM, pII, pDM, pDD],
+                         dtype=np.float32)
+        p = neff * fm.fpow2(tr[:n]) + gapb * prior
+        # none into I or D from the begin and end states, no D2D at the end
+        p[[0, 0, L, L, L], [M2D, M2I, M2D, M2I, D2D]] = 0.0
+        fmin = np.float32(FLT_MIN)
+        s = np.empty((n, NTRANS), dtype=np.float32)
+        s[:, M2M:M2D + 1] = (p[:, M2M] + p[:, M2D] + p[:, M2I] + fmin)[:, None]
+        s[:, I2M:I2I + 1] = (p[:, I2M] + p[:, I2I] + fmin)[:, None]
+        s[:, D2M:D2D + 1] = (p[:, D2M] + p[:, D2D] + fmin)[:, None]
+        # log2 of every ratio at once, then the gap factors (1 for the
+        # transitions into M, so those stay as they are)
+        factor = np.ones(NTRANS, dtype=np.float32)
+        factor[[M2D, M2I, I2I, D2D]] = (gapf, gapg, gapi, gaph)
+        tr[:n] = fm.fast_log2(p / s) * factor
         self.trans_lin = 2
 
     def prepare_pseudocounts(self, R: np.ndarray):
@@ -178,13 +176,13 @@ class HMM:
         L = self.L
         pav = (pb * np.float32(100.0) / np.float32(self.Neff_HMM))
         pav = pav.astype(np.float32)
-        # sequential accumulation per aa over columns 1..L (float32)
-        acc = pav.astype(np.float32)
-        for i in range(1, L + 1):
-            acc = acc + self.p[i]
-        s = np.float32(0.0)
-        for a in range(NAA):
-            s = np.float32(s + acc[a])
+        # per aa, pav + p[1] + ... + p[L] in column order, then the sum
+        # over the aa in their order (float32 throughout)
+        rows = np.empty((L + 1, NAA), dtype=np.float32)
+        rows[0] = pav
+        rows[1:] = self.p[1:L + 1]
+        acc = np.add.accumulate(rows, axis=0, dtype=np.float32)[L]
+        s = np.add.accumulate(acc, dtype=np.float32)[-1]
         self.pav = (acc / s).astype(np.float32)
         self.p[0] = self.pav
         self.p[L + 1] = self.pav

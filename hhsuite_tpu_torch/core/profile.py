@@ -22,12 +22,17 @@ from __future__ import annotations
 import numpy as np
 
 from .. import fastmath as fm
-from ..constants import (ANY, D2D, D2M, ENDGAP, GAP, I2I, I2M, M2D, M2I, M2M,
-                         MAXENDGAPFRAC, NAA, NCOLMIN)
+from ..constants import (AA_INTERNAL, ANY, D2D, D2M, ENDGAP, GAP, I2I, I2M,
+                         M2D, M2I, M2M, MAXENDGAPFRAC, NAA, NCOLMIN)
 from .alignment import Alignment
 from .hmm import HMM
 
 NCODE = 23   # aa 0-19, ANY, GAP, ENDGAP
+# the consensus rows' letters by residue index (ANY: X)
+_CONS_UPPER = np.frombuffer(AA_INTERNAL[:ANY].upper().encode() + b"X",
+                            dtype=np.uint8)
+_CONS_LOWER = np.frombuffer(AA_INTERNAL[:ANY].lower().encode() + b"x",
+                            dtype=np.uint8)
 
 
 def _seq_sum_f32(arr):
@@ -44,23 +49,24 @@ def global_weights(X: np.ndarray, in_: np.ndarray, nres: np.ndarray,
     the reference's float32 order; normalized to sum 1.
     """
     N = X.shape[0]
-    wg = np.full(N, 1e-6, dtype=np.float32)
     inm = in_ > 0
     body = X[:, 1:L + 1].astype(np.int64)
-    denom_base = (nres + 30.0).astype(np.float64)
-    for i in range(L):
-        col = body[inm, i]
-        ni = np.bincount(col, minlength=NCODE)
-        naa = int((ni[:20] > 0).sum()) or 1
-        valid = inm & (body[:, i] < 20)
-        if valid.any():
-            contrib = np.zeros(N, dtype=np.float64)
-            d = np.float32(ni[body[valid, i]] * naa) * np.float32(
-                denom_base[valid])
-            # C: 1.0 / float(ni*naa*(nres+30.0)) -> double recip of f32 cast
-            contrib[valid] = 1.0 / (ni[body[valid, i]] * naa
-                                    * denom_base[valid]).astype(np.float32)
-            wg = (wg.astype(np.float64) + contrib).astype(np.float32)
+    cols = np.broadcast_to(np.arange(L), body.shape)
+    # ni[i][a]: the filtered set's sequences with code a in column i
+    ni = np.bincount((cols[inm] * NCODE + body[inm]).ravel(),
+                     minlength=L * NCODE).reshape(L, NCODE)
+    naa = np.maximum((ni[:, :20] > 0).sum(axis=1), 1)
+    valid = inm[:, None] & (body < 20)
+    # C: 1.0 / float(ni*naa*(nres+30.0)), a float32 reciprocal; adding
+    # float32s through double rounds as a float32 sum does, so the
+    # column-order float32 accumulate is the reference's
+    denom = ((ni[cols, np.where(valid, body, 0)] * naa[None, :])
+             * (nres + 30.0).astype(np.float64)[:, None]).astype(np.float32)
+    acc = np.empty((N, L + 1), dtype=np.float32)
+    acc[:, 0] = 1e-6
+    acc[:, 1:] = np.where(valid, np.float32(1.0) / np.where(valid, denom, 1),
+                          np.float32(0.0))
+    wg = np.add.accumulate(acc, axis=1, dtype=np.float32)[:, -1].copy()
     s = _seq_sum_f32(wg)
     if s != 0:
         wg = (wg * np.float32(1.0 / s)).astype(np.float32)
@@ -350,12 +356,12 @@ def _single_sequence(ali: Alignment, q: HMM, in_, pb):
     q.Neff_M[: L + 2] = 1.0
     q.Neff_I[: L + 2] = 0.0
     q.Neff_D[: L + 2] = 0.0
-    body = X[k, : L + 2].astype(np.int64)
-    f = np.zeros((L + 2, NAA), dtype=np.float32)
-    isres = body < ANY
-    f[np.nonzero(isres)[0], body[isres]] = 1.0
-    f[~isres] = pb
-    q.f[: L + 2] = f
+    # a residue's row is its indicator, any other code's the background
+    # (a negative code, a character no table knows, indexes from the end)
+    rows = np.concatenate((np.eye(NAA, dtype=np.float32),
+                           np.broadcast_to(pb, (NCODE - NAA, NAA))))
+    code = X[k, : L + 2].astype(np.int64)
+    q.f[: L + 2] = rows[np.where(code < 0, code + NAA, code)]
     q.tr[: L + 2, :] = -100000.0
     q.tr[: L + 1, M2M] = 0
     q.tr[0, I2M] = 0
@@ -389,42 +395,28 @@ def _copy_display(ali: Alignment, q: HMM, mark, cons, showcons, pb, Sim):
         sname.append("")
         seq.append("")
 
-    cons_seq = None
-    first_cons_seq = None
     if showcons or cons:
-        from ..constants import AA_INTERNAL
         fmat = q.f[1:L + 1]
         diff = fmat - pb[None, :]
-        maxw = diff.max(axis=1)
-        maxa = np.where(maxw > 0, diff.argmax(axis=1), ANY)
-        chars_cons = []
-        chars_first = []
-        for i in range(L):
-            a = int(maxa[i])
-            letter = AA_INTERNAL[a] if a < ANY else "X"
-            if showcons:
-                w = 0.0
-                if a < NAA:
-                    w = float((fmat[i] * Sim[a] * Sim[a]).sum())
-                    w *= float(q.Neff_M[i + 1]) / (q.Neff_HMM + 1.0)
-                if w > 0.6:
-                    chars_cons.append(letter.upper())
-                elif w > 0.4:
-                    chars_cons.append(letter.lower())
-                else:
-                    chars_cons.append("x")
-            if cons:
-                chars_first.append(letter.upper())
+        top = diff.argmax(axis=1)
+        maxa = np.where(diff[np.arange(L), top] > 0, top, ANY)
         if showcons:
+            sim = Sim[np.minimum(maxa, NAA - 1)]
+            w = ((fmat * sim * sim).sum(axis=1).astype(np.float64)
+                 * (q.Neff_M[1:L + 1].astype(np.float64)
+                    / (q.Neff_HMM + 1.0)))
+            w = np.where(maxa < NAA, w, 0.0)
+            chars = np.where(w > 0.6, _CONS_UPPER[maxa],
+                             np.where(w > 0.4, _CONS_LOWER[maxa], ord("x")))
             q.ncons = n
             n += 1
             sname.append("Consensus")
-            seq.append("-" + "".join(chars_cons))
+            seq.append("-" + chars.astype(np.uint8).tobytes().decode())
         if cons:
             q.nfirst = n
             n += 1
             sname.append(ali.name + "_consensus")
-            seq.append("-" + "".join(chars_first))
+            seq.append("-" + _CONS_UPPER[maxa].tobytes().decode())
 
     kfirst_eff = -1 if cons else ali.kfirst
     maxseqdis = getattr(q, "maxseqdis", 10238)

@@ -27,7 +27,7 @@ from ..io.ffindex import FFindexDatabase
 from ..io.hhm import read_hhm
 from ..matrices import (SecStrucMatrices, SubstitutionMatrix,
                         get_ss_matrices, get_substitution_matrix)
-from ..profiling import annotate, gc_paused_fn, held, request
+from ..profiling import annotate, gc_paused_fn, held, request, stage_add
 from .posterior import (MACBacktraceResult, PosteriorDecoder,
                         RealignMaskSpec, build_realign_cell_off,
                         prepare_query_transitions,
@@ -177,9 +177,12 @@ class HHDatabase:
             par.pc_hhm_nocontext_c)
         hit = self._hmm_cache_get(key)
         if hit is None:
-            t, fmt = self.get_template_hmm(name, par, mats,
-                                           use_global_weights)
-            template_pc_stage(par, t, mats, fmt)
+            # a cold build: its span and count give the ms a template
+            with annotate("template_build"):
+                t, fmt = self.get_template_hmm(name, par, mats,
+                                               use_global_weights)
+                template_pc_stage(par, t, mats, fmt)
+            stage_add("template_builds")
             self._hmm_cache_put(key, (t, fmt))
             hit = (t, fmt)
         return hit

@@ -233,3 +233,42 @@ def test_backtrace_counters_match_the_hits(tmp_path, monkeypatch,
     assert _bt_totals(timers, "bt_cells") == sum(
         q.L * h.L for h in hits if not h.light)
     assert timers["vit_light_hits"] > 0.0
+
+
+def test_template_build_once_a_cold_build(tmp_path, monkeypatch):
+    """A cold build of a prepared template writes one ``template_build``
+    span and one ``n:template_builds``; a cache hit, in the prepared or
+    the search hand-out, writes neither; another weights flag is another
+    cold build.  With the tick clock each span reads 1 s."""
+    from hhsuite_tpu_torch.matrices import get_substitution_matrix
+
+    import shutil
+
+    for f in ("a3m", "cs219"):                  # a3m only: built from MSAs
+        for ext in (".ffdata", ".ffindex"):
+            shutil.copy(f"{FIX}/multi_{f}{ext}", tmp_path / f"db_{f}{ext}")
+    _tick_clock(monkeypatch)
+    db = engine.HHDatabase(str(tmp_path / "db"))
+    par = _par()
+    mats = get_substitution_matrix(par.matrix)
+    names = [n for n, _l in db.init_no_prefilter()][:3]
+    d = P.enable_stage_timers()
+    try:
+        for n in names:
+            db.get_template_hmm_prepared(n, par, mats)
+        cold = dict(d)
+        for n in names:
+            db.get_template_hmm_prepared(n, par, mats)
+            db._prepared_cache_entry(n, par, mats)
+        warm = dict(d)
+        db.get_template_hmm_prepared(names[0], par, mats,
+                                     use_global_weights=0)
+        other = dict(d)
+    finally:
+        P.disable_stage_timers()
+    assert cold["n:template_builds"] == 3
+    assert cold["template_build"] == 3.0
+    assert "template_build:self" in cold and "template_build:cpu" in cold
+    assert warm == cold
+    assert other["n:template_builds"] == 4
+    assert other["template_build"] == 4.0
